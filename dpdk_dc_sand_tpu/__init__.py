@@ -1,12 +1,13 @@
-"""dpdk_dc_sand_tpu — a TPU-native radio-astronomy signal-chain framework.
+"""dpdk_dc_sand_tpu — a JAX radio-astronomy signal-chain framework.
 
 A from-scratch rebuild of the capabilities of SARAO's ``dc_sand`` CUDA
-sandbox (reference: magnate3/dpdk_dc_sand), designed TPU-first:
+sandbox (reference: magnate3/dpdk_dc_sand), written in JAX and compiled
+by XLA for the accelerator (an NVIDIA H100; the CPU for tests):
 
-- F-engine: coarse delay, polyphase-filterbank channelisation (Pallas FIR +
-  XLA real FFT), fine-delay phase rotation, 8-bit requantisation.
+- F-engine: coarse delay, polyphase-filterbank channelisation (tap-sum FIR
+  + XLA real FFT), fine-delay phase rotation, 8-bit requantisation.
 - B-engine: steering-coefficient generation from CAM-style delay polynomials
-  and multi-beam coherent beamforming as channel-batched matmuls on the MXU.
+  and multi-beam coherent beamforming as channel-batched matmuls.
 - Parallelism over a named ``jax.sharding.Mesh``: channel sharding (the
   reference's ``xeng_id`` engine split), antenna sharding with ``psum`` beam
   reduction, time-block sharding with ``ppermute`` overlap-save halos.

@@ -1,10 +1,12 @@
-"""MXU numeric probing and roofline — the tensor_core analog.
+"""Tensor-core numeric probing and matmul rate — the tensor_core analog.
 
 ``tensor_core/tc_dynamic_range`` asks whether 65000 × 1.5e-5 survives
-fp16 tensor-core arithmetic (tc_dynamic_range.py:13-15). The MXU question
-is the same with bfloat16 inputs and f32 accumulation: bf16 has fp32's
-exponent range (no overflow at 65000) but only an 8-bit significand, so
-the answer differs from the CUDA fp16 case in an instructive way.
+fp16 tensor-core arithmetic (tc_dynamic_range.py:13-15): 65000 sits just
+under fp16's largest finite value and 1.5e-5 is below its smallest normal,
+so the small operand loses significand bits. The same question with
+bfloat16 operands answers differently: bf16 has fp32's exponent range (no
+overflow or subnormal at these values) but only an 8-bit significand.
+Both probes accumulate in f32, as the tensor cores do.
 """
 
 from __future__ import annotations
@@ -13,10 +15,13 @@ import time
 from typing import Dict
 
 
-def mxu_dynamic_range(
+_DTYPES = ("float16", "bfloat16", "float32")
+
+
+def tc_dynamic_range(
     large: float = 65000.0, small: float = 1.5e-5, dtype: str = "bfloat16"
 ) -> Dict[str, float]:
-    """Probe value survival through one MXU matmul.
+    """Probe value survival through one matmul with ``dtype`` operands.
 
     A [16,16] matrix of ``large`` multiplied by a diagonal of ``small``
     should yield exactly ``large*small`` everywhere if the pipeline
@@ -25,7 +30,9 @@ def mxu_dynamic_range(
     import jax
     import jax.numpy as jnp
 
-    dt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    if dtype not in _DTYPES:
+        raise ValueError(f"unknown dtype {dtype!r}")
+    dt = jnp.dtype(dtype)
     a = jnp.full((16, 16), large, dt)
     b = (jnp.eye(16) * small).astype(dt)
     out = jax.jit(
@@ -42,17 +49,17 @@ def mxu_dynamic_range(
         "expected": expected,
         "got": got,
         "rel_err": rel_err,
-        # bf16 significand rounding bounds the error near 2^-8
+        # fp16/bf16 significand rounding bounds the error near 2^-8
         "survives": float(rel_err < 2 ** -7),
     }
 
 
-def matmul_roofline(
+def matmul_rate(
     n: int = 4096, dtype: str = "bfloat16", iters: int = 8
 ) -> Dict[str, float]:
-    """Measured MXU TFLOP/s from a dependent matmul chain.
+    """Measured matmul TFLOP/s from a dependent matmul chain.
 
-    Chained (``x ← x@w·eps``) so relayed backends cannot elide or overlap
+    Chained (``x ← x@w·eps``) so the backend cannot elide or overlap
     iterations; first call compiles and is excluded.
     """
     import jax
@@ -80,13 +87,15 @@ def matmul_roofline(
 
 
 def main() -> None:
-    dr = mxu_dynamic_range()
-    print(
-        f"dynamic range bf16: expected={dr['expected']:.4g} got={dr['got']:.4g} "
-        f"rel_err={dr['rel_err']:.3g} survives={bool(dr['survives'])}"
-    )
-    rl = matmul_roofline()
-    print(f"matmul roofline: {rl['tflops']:.1f} TFLOP/s @ n={rl['n']}")
+    for dtype in ("float16", "bfloat16"):
+        dr = tc_dynamic_range(dtype=dtype)
+        print(
+            f"dynamic range {dtype}: expected={dr['expected']:.4g} "
+            f"got={dr['got']:.4g} rel_err={dr['rel_err']:.3g} "
+            f"survives={bool(dr['survives'])}"
+        )
+    rl = matmul_rate()
+    print(f"matmul rate: {rl['tflops']:.1f} TFLOP/s @ n={rl['n']}")
 
 
 if __name__ == "__main__":

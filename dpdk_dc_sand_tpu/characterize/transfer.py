@@ -19,7 +19,7 @@ Direction = Literal["h2d", "d2h", "both"]
 
 
 class TransferRateTest:
-    """Measure host↔HBM throughput with a ring of pinned-size frames.
+    """Measure host↔device throughput with a ring of pinned-size frames.
 
     Parameters mirror the reference defaults: 100 frames × 5 MiB
     (main.cpp:11-13).

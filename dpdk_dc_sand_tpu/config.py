@@ -7,7 +7,7 @@ per-shape JIT template parameters
 (``beamformer/beamforming/prebeamform_reorder.py:40-65``), CLI flags, and the
 test-parameter module (``beamformer/unit_test/test_parameters.py``).
 
-On TPU all shapes are static under ``jax.jit``; an :class:`ArrayConfig` is
+All shapes are static under ``jax.jit``; an :class:`ArrayConfig` is
 hashable and used as a static argument, so each distinct configuration
 compiles exactly once (the analog of the reference's per-shape mako builds).
 """
@@ -106,9 +106,9 @@ class ArrayConfig:
         """Samples per time block: 128 bits / sample bitwidth.
 
         The reference blocks time into 16-sample groups shaped for
-        tensor-core fragments (prebeamform_reorder.py:58-60); on TPU the
-        same 16-sample granule is the unit of the time axis used for MXU
-        tiling and time-shard boundaries.
+        tensor-core fragments (prebeamform_reorder.py:58-60); here the
+        same 16-sample granule is the unit of the time axis used for
+        time-shard boundaries.
         """
         return 128 // self.sample_bitwidth
 
@@ -210,7 +210,7 @@ class ArrayConfig:
 class DelayModel:
     """Per-(beam, antenna) delay polynomial, as supplied by CAM.
 
-    The TPU-native form of ``struct delay_vals``
+    The JAX form of ``struct delay_vals``
     (BeamformerParameters.h:61-66): first-order polynomials in time for both
     delay and phase. Arrays are ``[n_beams][n_ants]`` float32; they are
     *runtime inputs* to the jitted pipeline (never baked constants) so CAM
@@ -272,7 +272,7 @@ def cdiv(a: int, b: int) -> int:
 
 
 def round_up(x: int, m: int) -> int:
-    """Round ``x`` up to a multiple of ``m`` (TPU tile alignment helper)."""
+    """Round ``x`` up to a multiple of ``m`` (tile alignment helper)."""
     return cdiv(x, m) * m
 
 

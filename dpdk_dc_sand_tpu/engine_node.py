@@ -43,19 +43,15 @@ class EngineNode(DeviceServer):
         Spectra per chunk/step.
     margin:
         Coarse-delay history samples carried per chunk (the delay
-        budget). When the fused F kernel runs, the node adds the
-        in-kernel coarse-delay DMA slack (coarse_margin_samples) on
-        top, so the step takes the fast path — DMA row offsets + VMEM
-        sub-row shift — instead of an XLA alignment pass.
+        budget).
     on_beams:
         ``callback(beams_ndarray, seq)`` for egress (UDP sender, file,
         …). Called from the processing thread.
-    engine_opts:
-        Extra keyword arguments forwarded verbatim to the underlying
-        ``FBEngine``/``FXBEngine`` — the kernel-tuning knobs
-        (``fengine_s_blk``, ``fengine_vmem_mb``, ``fengine_pipeline``,
-        ``fengine_tapouter``, …) so a production node can run the
-        measured-best configuration from bench.py's contender ladder.
+
+    The node's engine runs on JAX's default device. Several nodes on one
+    host each need their own card: start each process with its own
+    ``CUDA_VISIBLE_DEVICES``, since a JAX process reserves most of a
+    card's memory when it first uses it.
     """
 
     def __init__(
@@ -67,11 +63,8 @@ class EngineNode(DeviceServer):
         port: int = 0,
         ring_slots: int = 8,
         on_beams: Optional[Callable[[np.ndarray, int], None]] = None,
-        use_pallas: bool | None = None,
-        fengine: str = "auto",
         beam_quant_scale: float | None = None,
-        bstage: str = "auto",
-        beam_layout: str = "split",
+        bstage: str = "planar",
         auth_secret: str | None = None,
         coeff_update_steps: int = 256,
         emit_visibilities: bool = False,
@@ -79,14 +72,12 @@ class EngineNode(DeviceServer):
         on_visibilities: Optional[
             Callable[[np.ndarray, np.ndarray, int], None]
         ] = None,
-        engine_opts: Optional[dict] = None,
     ) -> None:
         super().__init__(host, port, auth_secret=auth_secret)
         self.cfg = cfg
-        self.margin = margin
         self.on_beams = on_beams or (lambda beams, seq: None)
         #: When set, the device requantises beams to int8 before they
-        #: leave HBM (the 8-bit SPEAD beam transport format,
+        #: leave device memory (the 8-bit SPEAD beam transport format,
         #: test_parameters.py:22-25) — 4x less egress bandwidth and no
         #: host-side requantise pass.
         self.beam_quant_scale = beam_quant_scale
@@ -95,95 +86,30 @@ class EngineNode(DeviceServer):
         if emit_visibilities:
             # Full instrument: the F stage fans out to B and X inside
             # one jit; per-step visibilities integrate on-device over
-            # vis_accum_steps windows (the accumulation cadence). Shares
-            # the FBEngine fast path (fused F + turned B) — one F feeding
-            # X and B is the katgpucbf premise (do_merge.sh:4-10).
+            # vis_accum_steps windows (the accumulation cadence). One F
+            # feeding X and B is the katgpucbf premise (do_merge.sh:4-10).
             from dpdk_dc_sand_tpu.models import FXBEngine, VisibilityAccumulator
 
-            if beam_layout != "split":
-                # FXBEngine only emits the split [P, C, S, B, 2] beams;
-                # silently ignoring the option would ship a different
-                # payload layout than the caller declared to consumers.
-                raise ValueError(
-                    "emit_visibilities=True only supports "
-                    f'beam_layout="split" (got {beam_layout!r})'
-                )
             self.fb = FXBEngine(
                 cfg,
                 n_spectra=n_spectra,
-                use_pallas=use_pallas,
-                fengine=fengine,
                 bstage=bstage,
                 beam_quant_scale=beam_quant_scale,
-                **(engine_opts or {}),
             )
             self._vis_accum = VisibilityAccumulator(vis_accum_steps)
         else:
-            # beam_layout="natural" ships the dot-natural [C, P·S, 2B]
-            # beams (no on-device epilogue, −7 ms/step at the flagship
-            # config — benchmarks/beam_layout_ab.py); egress flattens
-            # bytes, so the SPEAD payload layout is declared by the
-            # heap metadata either way.
             self.fb = FBEngine(
                 cfg,
                 n_spectra=n_spectra,
-                use_pallas=use_pallas,
-                fengine=fengine,
                 beam_quant_scale=beam_quant_scale,
                 bstage=bstage,
-                beam_layout=beam_layout,
-                **(engine_opts or {}),
             )
             self._vis_accum = None
-        #: The user's coarse-delay budget: ?delay-model coarse values are
+        #: The coarse-delay budget: ?delay-model coarse values are
         #: validated against it (a delay beyond the budget would be
-        #: silently clipped by the kernel's q8/residual clamps otherwise).
+        #: silently clamped by the coarse-delay slice).
         self.delay_budget = margin
-        #: Extra trailing DMA slack the in-kernel coarse path needs on
-        #: top of the budget (0 on the XLA path); ``self.margin`` is the
-        #: total per-chunk headroom = delay_budget + dma_slack.
-        self.dma_slack = 0
-        if getattr(self.fb, "fengine", "xla") in ("fused", "fused_f32"):
-            from dpdk_dc_sand_tpu.ops.fengine_pallas import (
-                coarse_margin_samples,
-                ingest_alignment,
-            )
-
-            slack = coarse_margin_samples(
-                cfg.fft_size, cfg.n_taps, n_spectra, self.fb.ct_batch_a,
-                getattr(self.fb, "fengine_s_blk", None),
-            )
-            if slack is not None:
-                # Round the chunk length up to the kernel's ingest
-                # alignment: a misaligned chunk would silently pay a
-                # whole-stream copy per step (ingest_alignment()).
-                align = ingest_alignment(cfg.fft_size) or 1
-                total = margin + slack
-                total += -total % align
-                self.dma_slack = total - margin
-                self.margin = margin = total
         self.chunk_shape = (cfg.n_ants, cfg.n_pols, self.fb.samples_in + margin)
-        # Wire-rowed upload: when the chunk length is a multiple of the
-        # kernel's ingest alignment (the slack rounding above ensures it
-        # on the fast path), device_put the chunk bytes straight into
-        # the fused kernel's [A, P, rows, N2] HBM view — same h2d
-        # transfer, but the engine step then skips the per-step
-        # whole-stream relayout a flat-born array pays
-        # (benchmarks/dma_bisect.py, −25.7 ms at the flagship config).
-        from dpdk_dc_sand_tpu.ops.fengine_pallas import ingest_alignment
-
-        align = ingest_alignment(cfg.fft_size)
-        if (
-            getattr(self.fb, "fengine", "xla") != "xla"
-            and align
-            and self.chunk_shape[-1] % align == 0
-        ):
-            self.chunk_shape = (
-                cfg.n_ants,
-                cfg.n_pols,
-                self.chunk_shape[-1] // align,
-                align,
-            )
         chunk_bytes = int(np.prod(self.chunk_shape))
         # +16 headroom for the UDP receiver's timestamp/channel metadata
         # prefix (UdpReceiver._deliver) when ingest is attached over UDP.

@@ -1,7 +1,7 @@
 """Engine models (L3 of the layer map): composed, jitted DSP pipelines.
 
 The reference's ``OperationSequence`` chains ops on one command queue with
-aliased intermediate buffers (beamform_op_sequence.py:142-156); on TPU the
+aliased intermediate buffers (beamform_op_sequence.py:142-156); here the
 same composition is function composition inside a single ``jax.jit`` — XLA
 fuses the stages and the "compound slots" fall out as fusion temporaries
 that never touch HBM.

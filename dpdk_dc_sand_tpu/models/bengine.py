@@ -1,4 +1,4 @@
-"""B-engine: the reference's fused beamform op sequence, TPU-native.
+"""B-engine: the reference's fused beamform op sequence, in JAX.
 
 Parity target: ``beamformer/beamforming/beamform_op_sequence.py`` — the
 3-op chain reorder → coeff-gen → matmul on one command queue with aliased
@@ -24,7 +24,7 @@ from dpdk_dc_sand_tpu.ops.reorder import prebeamform_reorder
 class BeamformPipeline:
     """Reference-layout B-engine for one X-engine's channel slice.
 
-    The TPU analog of ``OpSequenceTemplate(...).instantiate(queue)``
+    The JAX analog of ``OpSequenceTemplate(...).instantiate(queue)``
     (beamform_op_sequence.py:69-134): construct once per configuration
     (compiles on first call, cached thereafter), then call with runtime
     data. ``delay_vals`` is a traced input — CAM delay updates at the

@@ -1,12 +1,16 @@
-"""Fused F+B pipeline — the flagship single-chip model.
+"""Fused F+B pipeline — the flagship single-device model.
 
 ADC streams → coarse delay → PFB channelise → fine delay → requantise →
 multi-beam beamform, all inside one ``jax.jit``. This is the full signal
 chain the reference prototypes sketch (SURVEY.md §1 data flow):
 the F-engine stage replaces katfgpu, the B-stage replaces the
-``beamform_op_sequence`` chain, and the corner turn between them is folded
-into the beamform matmul's operand layout by XLA (never materialised — the
-TPU answer to prebeamform_reorder_kernel.mako).
+``beamform_op_sequence`` chain, and the corner turn between them is a
+layout change XLA folds into the beamform matmul's operands
+(prebeamform_reorder_kernel.mako's job).
+
+Every stage runs under a stable ``jax.named_scope`` (:data:`STAGES`), so
+a profiler trace attributes device time per stage
+(:func:`dpdk_dc_sand_tpu.utils.profiling.stage_device_times`).
 """
 
 from __future__ import annotations
@@ -19,11 +23,7 @@ import numpy as np
 
 from dpdk_dc_sand_tpu.config import ArrayConfig
 from dpdk_dc_sand_tpu.golden.pfb import pfb_window
-from dpdk_dc_sand_tpu.ops.beamform import (
-    beamform_planes,
-    beamform_planes_folded,
-    beamform_turned,
-)
+from dpdk_dc_sand_tpu.ops.beamform import beamform_planes, beamform_planes_folded
 from dpdk_dc_sand_tpu.ops.coeff_gen import (
     steering_coeff_blockcat,
     steering_coeffs,
@@ -33,73 +33,22 @@ from dpdk_dc_sand_tpu.ops.delay import apply_fine_delay, coarse_delay
 from dpdk_dc_sand_tpu.ops.pfb import pfb_channelise
 from dpdk_dc_sand_tpu.ops.requant import requantise
 
+#: Named scopes of the F+B step, in signal-chain order ("fir" and "fft"
+#: are opened inside :func:`~dpdk_dc_sand_tpu.ops.pfb.pfb_channelise`).
+STAGES = (
+    "coarse_delay",
+    "fir",
+    "fft",
+    "fine_delay_requant",
+    "corner_turn",
+    "beamform",
+)
 
-def resolve_backends(
-    cfg: ArrayConfig,
-    n_spectra: int,
-    fengine: str,
-    bstage: str,
-    ct_batch_a,
-    interpret: bool = False,
-    beam_layout: str = "split",
-) -> tuple[str, str, bool]:
-    """Resolve ``"auto"`` backend selections to concrete backends.
-
-    The measured-fastest configuration (benchmarks/honest_tune.py,
-    2026-08-19: fused + turned + batch-A = the top of bench.py's attempt
-    list) is chosen whenever the geometry supports it and Pallas kernels
-    can actually run (TPU backend, or interpret mode for CPU-mesh tests);
-    otherwise the portable XLA-composed path. Explicit selections pass
-    through unchanged, so tests can pin any backend.
-    """
-    from dpdk_dc_sand_tpu.ops.bstage_pallas import bstage_fused_supported
-    from dpdk_dc_sand_tpu.ops.corner_turn import corner_turn_supported
-    from dpdk_dc_sand_tpu.ops.fengine_pallas import fused_supported
-
-    pallas_ok = interpret or jax.default_backend() == "tpu"
-    if fengine == "auto":
-        frames_shape = (
-            cfg.n_ants,
-            cfg.n_pols,
-            n_spectra + cfg.n_taps - 1,
-            cfg.fft_size,
-        )
-        fengine = (
-            "fused"
-            if pallas_ok
-            and fused_supported(frames_shape, cfg.n_taps, cfg.n_channels)
-            else "xla"
-        )
-    if bstage == "auto":
-        # Split layout: "turned" measured faster than the one-kernel
-        # "fused" B (82.7 vs 84.6 ms full step — the block-diagonal VMEM
-        # build outweighs the saved HBM round-trip, 2026-08-20). Natural
-        # layout: the ordering FLIPS — with both unpack epilogues gone,
-        # the one-kernel form wins (60.5 vs 62.3 ms same-run,
-        # benchmarks/beam_layout_ab.py natf_f32/nat_f32, 2026-08-21).
-        fused_ok = pallas_ok and bstage_fused_supported(
-            cfg.n_ants, cfg.n_pols, n_spectra, cfg.n_beams, cfg.n_channels
-        )
-        turned_ok = pallas_ok and corner_turn_supported(
-            cfg.n_ants, cfg.n_pols, n_spectra, cfg.n_channels
-        )
-        if beam_layout == "natural" and fused_ok:
-            bstage = "fused"
-        elif turned_ok:
-            bstage = "turned"
-        elif fused_ok:
-            bstage = "fused"
-        else:
-            bstage = "planar"
-    if ct_batch_a == "auto":
-        # +7% F-only over the per-si schedule, bit-identical output
-        # (ROADMAP 2026-08-19); only meaningful for the fused kernel.
-        ct_batch_a = fengine in ("fused", "fused_f32")
-    return fengine, bstage, bool(ct_batch_a)
+BSTAGES = ("planar", "folded")
 
 
 class FBEngine:
-    """End-to-end F+B signal chain over the full band on one chip.
+    """End-to-end F+B signal chain over the full band on one device.
 
     Parameters
     ----------
@@ -112,30 +61,17 @@ class FBEngine:
         F-engine output requantisation gain.
     precision:
         Beamform precision, ``"f32"`` or ``"bf16"``.
-    fengine / bstage / ct_batch_a:
-        Backend selection; the default ``"auto"`` resolves to the
-        measured-fastest configuration (fused Pallas F kernel + Pallas
-        corner-turn B-stage + batch-A schedule) on TPU where the
-        geometry supports it, else the portable XLA path — see
-        :func:`resolve_backends`. Resolved values are exposed as
-        ``self.fengine`` / ``self.bstage`` / ``self.ct_batch_a``.
+    bstage:
+        B-stage form: ``"planar"`` (four channel-batched dots on the
+        (re, im) planes, corner turn folded into the operands) or
+        ``"folded"`` (one explicit int8 corner-turn copy + one
+        block-complex dot per channel).
     beam_quant_scale:
         When set, beams are requantised to int8 with this gain — the
         8-bit beam transport format of the production egress (the
         reference's B-engine feeds 1 KiB 8-bit SPEAD heaps,
         test_parameters.py:22-25); ``None`` keeps f32 beams
         (matrix_multiply.py:34-35 contract).
-    beam_layout:
-        ``"split"`` (default): ``[P, C, S, B, 2]`` beams. ``"natural"``:
-        the dot-natural ``[C, P·S, 2B]`` form with no on-device
-        epilogue (−7.4 ms/step at the flagship config, the bench
-        default — benchmarks/beam_layout_ab.py); requires
-        ``bstage="turned"``.
-    fengine_pipeline:
-        Software-pipelined k-way sub-block F schedule (``"auto"``
-        resolves on for fused+batch-A where supported; an int selects
-        the chunk count, ``True`` = 2) — see ops/fengine_pallas
-        ``ct_pipeline``.
     """
 
     def __init__(
@@ -144,154 +80,26 @@ class FBEngine:
         n_spectra: int = 256,
         quant_scale: float = 1.0 / 16.0,
         precision: str = "f32",
-        use_pallas: bool | None = None,
-        fengine: str = "auto",
         beam_quant_scale: float | None = None,
-        fengine_interpret: bool = False,
-        bstage: str = "auto",
-        ct_batch_a: bool | str = "auto",
-        fengine_rolling: bool | str = "auto",
-        beam_layout: str = "split",
-        fengine_pipeline: bool | str = "auto",
-        fengine_s_blk: int | None = None,
-        fengine_vmem_mb: int | None = None,
-        fengine_tapouter: bool | str = False,
-        fengine_bfuse: bool | str = False,
-        fengine_skew: bool = False,
-        fengine_native_handoff: bool | str = "auto",
-        fengine_flat_out: bool | str = "auto",
+        bstage: str = "planar",
     ) -> None:
-        if fengine not in ("auto", "xla", "fused", "fused_f32"):
-            raise ValueError(f"unknown fengine backend {fengine!r}")
-        if bstage not in ("auto", "planar", "folded", "turned", "fused"):
-            raise ValueError(f"unknown bstage backend {bstage!r}")
-        if beam_layout not in ("split", "natural"):
-            raise ValueError(f"unknown beam_layout {beam_layout!r}")
-        fengine, bstage, ct_batch_a = resolve_backends(
-            cfg, n_spectra, fengine, bstage, ct_batch_a, fengine_interpret,
-            beam_layout,
-        )
-        if beam_layout == "natural" and bstage not in ("turned", "fused"):
-            # Fail at construction, not at first-step trace time: the
-            # dot-natural layout only exists for the B stages that emit
-            # it (_b_stage raises the same constraint when traced).
-            raise ValueError(
-                'beam_layout="natural" requires bstage "turned" or "fused" '
-                f"(resolved bstage={bstage!r} for this geometry/backend)"
-            )
-        if fengine_rolling == "auto":
-            # The bf16 FIR-history ring deletes the sliding window's
-            # ~(taps−1)/s_blk DMA/convert re-work; bit-exact vs the full
-            # re-DMA schedule (tests/test_fengine_fused.py), direct-CT
-            # form only.
-            from dpdk_dc_sand_tpu.ops.fengine_pallas import rolling_supported
-
-            fengine_rolling = fengine in (
-                "fused",
-                "fused_f32",
-            ) and rolling_supported(cfg.n_channels)
-        if fengine_pipeline == "auto":
-            # The software-pipelined half-block batch-A schedule
-            # (fengine_pallas ct_pipeline): 54.0 -> 51.4 ms F-only at the
-            # flagship config, and since the two-buffer reformulation
-            # (2026-08-21) its Mosaic compile is ~83 s — in line with the
-            # plain schedule — so it is the default wherever it applies.
-            from dpdk_dc_sand_tpu.ops.fengine_pallas import (
-                pipeline_auto_k,
-            )
-
-            fengine_pipeline = (
-                pipeline_auto_k(n_spectra, cfg.n_channels)
-                if fengine in ("fused", "fused_f32") and ct_batch_a
-                else 0
-            )
-        self.fengine = fengine
+        if bstage not in BSTAGES:
+            raise ValueError(f"unknown bstage {bstage!r}")
         self.bstage = bstage
-        self.ct_batch_a = ct_batch_a
-        self.fengine_rolling = bool(fengine_rolling)
-        # Normalise once, matching the kernel's ct_pipeline contract
-        # (True = 2-way); int(True) would silently mean a degenerate
-        # 1-chunk "pipeline".
-        self.fengine_pipeline = (
-            2 if fengine_pipeline is True else int(fengine_pipeline)
-        )
-        #: Kernel-tuning overrides (spectra block / VMEM cap); None =
-        #: the kernel's measured defaults.
-        self.fengine_s_blk = fengine_s_blk
-        self.fengine_vmem_mb = fengine_vmem_mb
-        self.fengine_tapouter = fengine_tapouter
-        self.fengine_bfuse = fengine_bfuse
-        self.fengine_skew = fengine_skew
-        if fengine_native_handoff == "auto":
-            # Native F->B plane handoff: the F kernel keeps its own
-            # [S, rows, lanes] plane layout and the corner-turn kernel
-            # slices it directly, skipping the [rows, lanes] -> [C]
-            # merge between the kernels. Measured NEUTRAL at the
-            # flagship config (38.2 vs 38.8 Gs/s full step, 2026-08-21
-            # — unlike the ingest side, XLA folds the F-output merge
-            # into the consumer cheaply), so auto resolves OFF; the
-            # implementation stays behind the knob (equivalence-tested)
-            # for geometries where the merge does materialise.
-            fengine_native_handoff = False
-        if fengine_native_handoff:
-            from dpdk_dc_sand_tpu.ops.corner_turn import (
-                corner_turn_native_supported,
-            )
-            from dpdk_dc_sand_tpu.ops.fengine_pallas import _deint_mode
-
-            mode, nn1, nn2 = _deint_mode(cfg.n_channels)
-            if not (
-                fengine in ("fused", "fused_f32")
-                and bstage == "turned"
-                and mode == "ct"
-                and corner_turn_native_supported(
-                    cfg.n_ants, cfg.n_pols, n_spectra, nn2 // 2, nn1
-                )
-            ):
-                raise ValueError(
-                    "fengine_native_handoff needs the fused direct-CT F "
-                    "kernel with the turned B stage on a supported "
-                    "geometry"
-                )
-        self.fengine_native_handoff = bool(fengine_native_handoff)
-        if fengine_flat_out == "auto":
-            # In-kernel [batch, S, C] emission: the F kernel flattens
-            # each spectrum's [rows, lanes] plane in VMEM so its HBM
-            # output is already the B/X consumers' layout — no XLA
-            # relayout between the kernels. Auto-on wherever the
-            # quantised direct-CT kernel runs with an 8-divisible
-            # spectra block.
-            from dpdk_dc_sand_tpu.ops.fengine_pallas import flat_out_auto
-
-            fengine_flat_out = (
-                fengine in ("fused", "fused_f32")
-                and not self.fengine_native_handoff
-                and flat_out_auto(
-                    cfg.n_channels, n_spectra, fengine_s_blk, ct_batch_a
-                )
-            )
-        self.fengine_flat_out = bool(fengine_flat_out)
         self.cfg = cfg
         self.n_spectra = n_spectra
         self.quant_scale = quant_scale
-        #: Fine-rotation plane cache (delay-update cadence, like the
-        #: steering blocks): content-keyed, see _fine_rot().
-        self._rot_planes = None
-        self._rot_key = None
         self.window = jnp.asarray(np.asarray(pfb_window(cfg.n_taps, cfg.fft_size)))
-        # bf16 mode stores the steering planes in bf16 at update time:
-        # the dots then read half the coefficient bytes per step (the
-        # dominant B-stage HBM term at the flagship config) instead of
-        # casting f32 planes in-step (which costs an extra HBM pass —
-        # measured in benchmarks/boundary_variants.py v4).
-        # "folded" bstage pre-expands them to [C, 2A, 2B] block-concat
-        # weights for the single-dot beamform.
+        # bf16 mode stores the steering planes in bf16 at update time, so
+        # the dots read half the coefficient bytes per step. "folded"
+        # pre-expands them to [C, 2A, 2B] block-concat weights for the
+        # single-dot beamform.
         self._coeff_fn = jax.jit(
             functools.partial(
                 _coeff_blocks,
                 cfg=cfg,
                 dtype=jnp.bfloat16 if precision == "bf16" else jnp.float32,
-                folded=(bstage in ("folded", "turned", "fused")),
+                folded=(bstage == "folded"),
             )
         )
         self._coeff_blocks = None
@@ -304,25 +112,10 @@ class FBEngine:
                 n_spectra=n_spectra,
                 quant_scale=quant_scale,
                 precision=precision,
-                use_pallas=use_pallas,
-                fengine=fengine,
                 beam_quant_scale=beam_quant_scale,
-                fengine_interpret=fengine_interpret,
                 bstage=bstage,
-                ct_batch_a=ct_batch_a,
-                fengine_rolling=self.fengine_rolling,
-                beam_layout=beam_layout,
-                fengine_pipeline=self.fengine_pipeline,
-                fengine_s_blk=fengine_s_blk,
-                fengine_vmem_mb=fengine_vmem_mb,
-                fengine_tapouter=fengine_tapouter,
-                fengine_bfuse=fengine_bfuse,
-                fengine_skew=fengine_skew,
-                planes_native=self.fengine_native_handoff,
-                flat_out=self.fengine_flat_out,
             )
         )
-        self.beam_layout = beam_layout
 
     @property
     def samples_in(self) -> int:
@@ -356,16 +149,13 @@ class FBEngine:
         ``[n_pols, n_channels, n_spectra, n_beams, 2]`` f32 beams.
         """
         self.set_beam_delays(delay_vals)
-        return self._step(
-            adc, coarse_delays, frac_delays, phases, self._coeff_blocks,
-            rot_planes=self._fine_rot(frac_delays, phases),
-        )
+        return self.step(adc, coarse_delays, frac_delays, phases)
 
     def set_beam_delays(self, delay_vals, ant_weights=None, t_s: float = 0.0) -> None:
         """(Re)generate steering rotation blocks from delay polynomials.
 
         Cheap relative to a step but hoisted out of the hot loop:
-        (cos, sin) planes are ``[n_channels, B, A]`` f32 in HBM,
+        (cos, sin) planes are ``[n_channels, B, A]`` in device memory,
         regenerated only when the polynomial *values* change
         (content-digest cache, :func:`steering_key`) — the
         256-accumulation reuse cadence.
@@ -391,79 +181,23 @@ class FBEngine:
             )
             self._coeff_key = key
 
-    def _fine_rot(self, frac_delays, phases):
-        """Cached fine-delay rotation planes for the fused kernel.
-
-        Like the steering blocks, the planes depend only on the delay
-        solution (updated at the 256-accumulation cadence), so they are
-        content-keyed and regenerated only when the values change.
-        Measured NEUTRAL at the flagship config (f_diag nofd_* rows,
-        2026-08-21 — XLA hoists the per-step recompute); kept because
-        hoisting to the update path is production-correct and free.
-        Bit-identical output (same computation, hoisted).
-        ``None`` (inline computation) for the XLA F stage and
-        geometries without the direct-CT kernel.
-        """
-        if self.fengine == "xla":
-            return None
-        from dpdk_dc_sand_tpu.ops.fengine_pallas import (
-            _deint_mode,
-            fine_rotation_planes,
-        )
-
-        if _deint_mode(self.cfg.n_channels)[0] != "ct":
-            return None
-        fdn = np.ascontiguousarray(np.asarray(frac_delays, np.float32))
-        phn = np.ascontiguousarray(np.asarray(phases, np.float32))
-        import hashlib
-
-        key = hashlib.blake2b(
-            fdn.tobytes() + phn.tobytes(), digest_size=16
-        ).hexdigest()
-        if self._rot_planes is None or key != self._rot_key:
-            fd_b = jnp.broadcast_to(
-                jnp.asarray(fdn)[:, None], (self.cfg.n_ants, self.cfg.n_pols)
-            )
-            ph_b = jnp.broadcast_to(
-                jnp.asarray(phn)[:, None], (self.cfg.n_ants, self.cfg.n_pols)
-            )
-            self._rot_planes = fine_rotation_planes(
-                fd_b, ph_b, n_channels=self.cfg.n_channels,
-                quant_scale=self.quant_scale,
-            )
-            self._rot_key = key
-        return self._rot_planes
-
     def step(self, adc, coarse_delays, frac_delays, phases):
         """Hot-loop step using the cached steering blocks."""
         if self._coeff_blocks is None:
             raise RuntimeError("call set_beam_delays() first")
         return self._step(
-            adc, coarse_delays, frac_delays, phases, self._coeff_blocks,
-            rot_planes=self._fine_rot(frac_delays, phases),
+            adc, coarse_delays, frac_delays, phases, self._coeff_blocks
         )
 
     def example_inputs(
         self, seed: int = 2021, margin: int = 64,
-        delay_budget: int | None = None, rowed: bool = False,
+        delay_budget: int | None = None,
     ):
         """Random inputs sized for one step.
 
-        ``margin`` is the TOTAL trailing headroom carried beyond
-        ``samples_in`` (delay budget + any DMA slack); ``delay_budget``
-        bounds the drawn coarse delays (default: the whole margin).
-        Callers provisioning in-kernel coarse-delay DMA slack must pass
-        ``margin=slack+budget, delay_budget=budget`` — drawing delays
-        from the whole margin would exceed the true headroom and be
-        silently clipped by the kernel's q8/residual clamps.
-
-        ``rowed=True`` returns the ADC stream pre-shaped
-        ``[A, P, rows, N2]`` (the wire-rowed ingest layout — a free host
-        reshape here, and the shape device_put tiles directly): the
-        fused F kernel then skips the per-step whole-stream relayout a
-        flat stream pays (benchmarks/dma_bisect.py). Requires
-        ``samples_in + margin`` to be a multiple of the kernel's ingest
-        alignment (see :func:`ops.fengine_pallas.ingest_alignment`).
+        ``margin`` is the trailing headroom carried beyond ``samples_in``;
+        ``delay_budget`` bounds the drawn coarse delays (default: the
+        whole margin).
         """
         rng = np.random.default_rng(seed)
         cfg = self.cfg
@@ -471,16 +205,6 @@ class FBEngine:
             -64, 64, size=(cfg.n_ants, cfg.n_pols, self.samples_in + margin),
             dtype=np.int8,
         )
-        if rowed:
-            from dpdk_dc_sand_tpu.ops.fengine_pallas import ingest_alignment
-
-            n2 = ingest_alignment(cfg.fft_size)
-            if n2 is None or adc.shape[-1] % n2:
-                raise ValueError(
-                    "rowed example inputs need an N2-aligned stream "
-                    "length (geometry must take the direct-CT kernel)"
-                )
-            adc = adc.reshape(cfg.n_ants, cfg.n_pols, -1, n2)
         if delay_budget is None:
             delay_budget = margin
         cd = rng.integers(0, delay_budget, size=cfg.n_ants).astype(np.int32)
@@ -506,7 +230,7 @@ def _coeff_blocks(
     ``folded=False``: (cos, sin) ``[C, B, A]`` planes for the 4-dot
     planar beamform. ``folded=True``: block-concat ``[C, 2A, 2B]``
     weights for the single-dot form (regenerated only on delay updates,
-    so the 4× expansion costs update-time HBM, not step time).
+    so the 4× expansion costs update-time memory traffic, not step time).
 
     ``t_s`` (traced scalar — no recompile as time advances): seconds past
     the polynomial epoch; delay/phase rates extrapolate the solution, the
@@ -541,105 +265,22 @@ def _f_stage(
     cfg: ArrayConfig,
     n_spectra: int,
     quant_scale: float,
-    use_pallas: bool | None,
-    fengine: str = "xla",
-    fengine_interpret: bool = False,
-    ct_batch_a: bool = False,
-    fengine_rolling: bool = False,
-    fengine_pipeline: bool = False,
-    fengine_s_blk: int | None = None,
-    fengine_vmem_mb: int | None = None,
-    fengine_tapouter: bool | str = False,
-    fengine_bfuse: bool | str = False,
-    fengine_skew: bool = False,
-    rot_planes=None,
-    planes_native: bool = False,
-    flat_out: bool = False,
+    quantise: bool = True,
 ) -> tuple[jax.Array, jax.Array]:
     """Shared F stage: coarse delay + PFB + fine delay + requantise.
 
     Returns ``(qr, qi)`` int8 ``[A, P, S, C]`` planes — consumed by the
-    B stage(s) and (in the FXB engine) the correlator.
+    B stage and (in the FXB engine) the correlator. ``quantise=False``
+    returns the scaled f32 planes instead (filter-response measurements,
+    which int8 cannot express below its per-bin quantisation floor).
     """
     out_len = (n_spectra + cfg.n_taps - 1) * cfg.fft_size
-    #: Wire-rowed ingest: a 4-d ADC stream [A, P, rows, N2] is the fused
-    #: kernel's own HBM view — born in that shape (free at device_put),
-    #: it skips the whole-stream relayout copy a flat stream pays every
-    #: step (−25.7 ms at the flagship config, benchmarks/dma_bisect.py).
-    rowed = adc.ndim == 4
-    if fengine != "xla":
-        # Single fused Pallas kernel: FIR + MXU rFFT + fine delay +
-        # requant, int8 in / int8 out, no HBM intermediates (see
-        # ops/fengine_pallas.py). "fused" uses bf16 DFT operands with
-        # f32 accumulation; "fused_f32" keeps exact f32 MACs.
-        from dpdk_dc_sand_tpu.ops.fengine_pallas import (
-            coarse_margin_samples,
-            fengine_fused,
-        )
-
-        fd_b = jnp.broadcast_to(
-            frac_delays[:, None], (cfg.n_ants, cfg.n_pols)
-        )
-        ph_b = jnp.broadcast_to(phases[:, None], (cfg.n_ants, cfg.n_pols))
-        common = dict(
-            n_channels=cfg.n_channels,
-            quant_scale=quant_scale,
-            dft_dtype="float32" if fengine == "fused_f32" else "bfloat16",
-            interpret=fengine_interpret,
-            ct_batch_a=ct_batch_a,
-            rolling=fengine_rolling,
-            ct_pipeline=fengine_pipeline,
-            s_blk=fengine_s_blk,
-            vmem_limit_mb=fengine_vmem_mb,
-            fir_tapouter=fengine_tapouter,
-            ct_bfuse=fengine_bfuse,
-            ct_skew=fengine_skew,
-            # Cached fine-rotation planes (computed on the delay-update
-            # path): recomputing the 2*B*C cos/sin grid per step costs
-            # ~14 ms at the flagship config (f_diag nofd_* rows).
-            rot_planes=rot_planes,
-            planes_native=planes_native,
-            flat_out=flat_out,
-        )
-        margin_need = coarse_margin_samples(
-            cfg.fft_size, cfg.n_taps, n_spectra, ct_batch_a, fengine_s_blk
-        )
-        samples = (
-            adc.shape[-2] * adc.shape[-1] if rowed else adc.shape[-1]
-        )
-        if margin_need is not None and samples >= out_len + margin_need:
-            # Coarse delay folded into the kernel's DMA offsets + an
-            # in-VMEM sub-row shift — the XLA alignment pass (a full
-            # HBM rewrite via per-antenna dynamic slices, ~21 ms at the
-            # flagship config) disappears entirely.
-            qr, qi = fengine_fused(
-                adc,
-                window,
-                fd_b,
-                ph_b,
-                coarse_delays=jnp.broadcast_to(
-                    coarse_delays[:, None], (cfg.n_ants, cfg.n_pols)
-                ),
-                n_spectra=n_spectra,
-                rowed=rowed,
-                **common,
-            )
-        else:
-            flat = (
-                adc.reshape(cfg.n_ants, cfg.n_pols, -1) if rowed else adc
-            )
-            aligned = coarse_delay(flat, coarse_delays, out_len)
-            frames = aligned.reshape(
-                cfg.n_ants, cfg.n_pols, -1, cfg.fft_size
-            )
-            qr, qi = fengine_fused(frames, window, fd_b, ph_b, **common)
-    else:
-        if rowed:
-            adc = adc.reshape(cfg.n_ants, cfg.n_pols, -1)
+    with jax.named_scope("coarse_delay"):
         aligned = coarse_delay(adc, coarse_delays, out_len)
-        spectra = pfb_channelise(
-            aligned, window, n_channels=cfg.n_channels, use_pallas=use_pallas
-        )  # [A, P, S, C] complex64
+    spectra = pfb_channelise(
+        aligned, window, n_channels=cfg.n_channels
+    )  # [A, P, S, C] complex64
+    with jax.named_scope("fine_delay_requant"):
         re, im = apply_fine_delay(
             jnp.real(spectra),
             jnp.imag(spectra),
@@ -647,12 +288,11 @@ def _f_stage(
             phases[:, None],
             n_channels=cfg.n_channels,
         )
-        # Keep (re, im) as separate int8 planes through the F→B handoff:
-        # stacking them on a trailing-2 axis forces XLA into padded tiled
-        # layouts whose copies back-propagate through the FFT chain —
-        # measured ~1.8× the whole step at the flagship config
-        # (benchmarks/fuse_boundary{,2}.py; output-side trailing-2 stack is
-        # free, input-side is not).
+        if not quantise:
+            return re * quant_scale, im * quant_scale
+        # (re, im) stay separate int8 planes through the F→B handoff:
+        # the B and X consumers read planes, and a trailing-2 stack
+        # would add a relayout between the stages.
         qr = requantise(re, quant_scale)  # [A, P, S, C] int8
         qi = requantise(im, quant_scale)
     return qr, qi
@@ -666,129 +306,32 @@ def _b_stage(
     cfg: ArrayConfig,
     precision: str,
     bstage: str = "planar",
-    fengine_interpret: bool = False,
     beam_quant_scale: float | None = None,
-    beam_layout: str = "split",
 ) -> jax.Array:
     """Shared B stage: corner turn + multi-beam matmul (+ beam requant).
 
     Consumes the F-stage int8 planes; returns ``[P, C, S, B, 2]`` beams
-    (f32, or int8 when ``beam_quant_scale``) — or, with
-    ``beam_layout="natural"``, the dot-natural ``[C, P·S, 2B]`` form
-    with no epilogue (see :func:`ops.beamform.beamform_turned`).
+    (f32, or int8 when ``beam_quant_scale``).
     """
-    if beam_layout == "natural":
-        # Dot-natural output: skip the [C, P·S, 2B] → [P, C, S, B, 2]
-        # split/transpose/stack epilogue entirely (~7 ms/step of pure
-        # layout shuffle at the flagship config). Egress flattens bytes,
-        # so production ships this layout.
-        if bstage == "turned":
-            if qr.ndim == 5:
-                # Native handoff: one per-plane turn (slicing the F
-                # kernel's own plane layout — no relayout copy) + the
-                # split-contraction beamform.
-                from dpdk_dc_sand_tpu.ops.beamform import (
-                    beamform_turned_split,
-                )
-                from dpdk_dc_sand_tpu.ops.corner_turn import (
-                    corner_turn_plane_native,
-                )
-
-                xr_t = corner_turn_plane_native(
-                    qr, interpret=fengine_interpret
-                )
-                xi_t = corner_turn_plane_native(
-                    qi, interpret=fengine_interpret
-                )
-                out = beamform_turned_split(
-                    xr_t, xi_t, coeff_blocks, n_pols=cfg.n_pols,
-                    precision=precision, layout="natural",
-                )
-            else:
-                from dpdk_dc_sand_tpu.ops.corner_turn import (
-                    corner_turn_planes,
-                )
-
-                x_t = corner_turn_planes(qr, qi, interpret=fengine_interpret)
-                out = beamform_turned(
-                    x_t,
-                    coeff_blocks,
-                    n_pols=cfg.n_pols,
-                    precision=precision,
-                    layout="natural",
-                )
-        elif bstage == "fused":
-            # One-kernel corner turn + block-diagonal dot, packed
-            # [C/pack, P·S, pack·2B] wire format (no unpack epilogue).
-            from dpdk_dc_sand_tpu.ops.bstage_pallas import (
-                beamform_turned_fused,
-            )
-
-            out = beamform_turned_fused(
-                qr, qi, coeff_blocks, n_pols=cfg.n_pols,
-                precision=precision, interpret=fengine_interpret,
-                layout="packed",
-            )
-        else:
-            raise ValueError(
-                'beam_layout="natural" requires bstage "turned" or "fused"'
-            )
-        if beam_quant_scale is not None:
-            out = requantise(out, beam_quant_scale)
-        return out
-    if bstage == "fused":
-        # ---- B-engine fastest path: corner turn + block-diagonal
-        # multi-channel dot in ONE Pallas kernel — no [C, 2A, P·S]
-        # operand ever reaches HBM (ops/bstage_pallas.py) ----
-        from dpdk_dc_sand_tpu.ops.bstage_pallas import beamform_turned_fused
-
-        beam_re, beam_im = beamform_turned_fused(
-            qr, qi, coeff_blocks, n_pols=cfg.n_pols, precision=precision,
-            interpret=fengine_interpret,
-        )
-    elif bstage == "turned":
-        # ---- B-engine fast path: Pallas corner-turn kernel (explicit
-        # DMA tiling + Mosaic 8-bit in-VMEM transpose, ~390 GB/s vs
-        # ~34 GB/s for the XLA turn) + one folded block-complex dot per
-        # channel ----
-        if qr.ndim == 5:
-            from dpdk_dc_sand_tpu.ops.beamform import beamform_turned_split
-            from dpdk_dc_sand_tpu.ops.corner_turn import (
-                corner_turn_plane_native,
-            )
-
-            xr_t = corner_turn_plane_native(qr, interpret=fengine_interpret)
-            xi_t = corner_turn_plane_native(qi, interpret=fengine_interpret)
-            beam_re, beam_im = beamform_turned_split(
-                xr_t, xi_t, coeff_blocks, n_pols=cfg.n_pols,
-                precision=precision,
-            )
-        else:
-            from dpdk_dc_sand_tpu.ops.corner_turn import corner_turn_planes
-
-            x_t = corner_turn_planes(qr, qi, interpret=fengine_interpret)
-            beam_re, beam_im = beamform_turned(
-                x_t, coeff_blocks, n_pols=cfg.n_pols, precision=precision
-            )
-    elif bstage == "folded":
-        # ---- B-engine: explicit int8 corner-turn copy + one folded
-        # block-complex dot per channel (M = P·S) ----
+    if bstage == "folded":
+        # One explicit int8 corner-turn copy + one folded block-complex
+        # dot per channel (M = P·S); the op opens both stage scopes.
         beam_re, beam_im = beamform_planes_folded(
             qr, qi, coeff_blocks, precision
         )
     else:
-        # ---- corner turn (layout only; folded by XLA) ----
-        # [A, P, S, C] -> [P, C, S, A] per plane
-        xr = jnp.transpose(qr, (1, 3, 2, 0))
-        xi = jnp.transpose(qi, (1, 3, 2, 0))
-
-        # ---- B-engine: channel-batched planar matmuls w/ cached coeffs ----
-        cos, sin = coeff_blocks
-        beam_re, beam_im = beamform_planes(xr, xi, cos, sin, precision)
-    if beam_quant_scale is not None:
-        beam_re = requantise(beam_re, beam_quant_scale)
-        beam_im = requantise(beam_im, beam_quant_scale)
-    return jnp.stack([beam_re, beam_im], axis=-1)
+        with jax.named_scope("corner_turn"):
+            # [A, P, S, C] -> [P, C, S, A] per plane
+            xr = jnp.transpose(qr, (1, 3, 2, 0))
+            xi = jnp.transpose(qi, (1, 3, 2, 0))
+        with jax.named_scope("beamform"):
+            cos, sin = coeff_blocks
+            beam_re, beam_im = beamform_planes(xr, xi, cos, sin, precision)
+    with jax.named_scope("beamform"):
+        if beam_quant_scale is not None:
+            beam_re = requantise(beam_re, beam_quant_scale)
+            beam_im = requantise(beam_im, beam_quant_scale)
+        return jnp.stack([beam_re, beam_im], axis=-1)
 
 
 def _fb_step(
@@ -803,23 +346,8 @@ def _fb_step(
     n_spectra: int,
     quant_scale: float,
     precision: str,
-    use_pallas: bool | None,
-    fengine: str = "xla",
     beam_quant_scale: float | None = None,
-    fengine_interpret: bool = False,
     bstage: str = "planar",
-    ct_batch_a: bool = False,
-    fengine_rolling: bool = False,
-    beam_layout: str = "split",
-    fengine_pipeline: bool = False,
-    fengine_s_blk: int | None = None,
-    fengine_vmem_mb: int | None = None,
-    fengine_tapouter: bool | str = False,
-    fengine_bfuse: bool | str = False,
-    fengine_skew: bool = False,
-    rot_planes=None,
-    planes_native: bool = False,
-    flat_out: bool = False,
 ) -> jax.Array:
     qr, qi = _f_stage(
         adc,
@@ -830,20 +358,6 @@ def _fb_step(
         cfg=cfg,
         n_spectra=n_spectra,
         quant_scale=quant_scale,
-        use_pallas=use_pallas,
-        fengine=fengine,
-        fengine_interpret=fengine_interpret,
-        ct_batch_a=ct_batch_a,
-        fengine_rolling=fengine_rolling,
-        fengine_pipeline=fengine_pipeline,
-        fengine_s_blk=fengine_s_blk,
-        fengine_vmem_mb=fengine_vmem_mb,
-        fengine_tapouter=fengine_tapouter,
-        fengine_bfuse=fengine_bfuse,
-        fengine_skew=fengine_skew,
-        rot_planes=rot_planes,
-        planes_native=planes_native,
-        flat_out=flat_out,
     )
     return _b_stage(
         qr,
@@ -852,7 +366,5 @@ def _fb_step(
         cfg=cfg,
         precision=precision,
         bstage=bstage,
-        fengine_interpret=fengine_interpret,
         beam_quant_scale=beam_quant_scale,
-        beam_layout=beam_layout,
     )

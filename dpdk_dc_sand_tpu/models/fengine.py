@@ -18,16 +18,15 @@ import numpy as np
 
 from dpdk_dc_sand_tpu.config import ArrayConfig
 from dpdk_dc_sand_tpu.golden.pfb import pfb_window
-from dpdk_dc_sand_tpu.ops.delay import apply_fine_delay, coarse_delay
-from dpdk_dc_sand_tpu.ops.pfb import pfb_channelise
-from dpdk_dc_sand_tpu.ops.requant import requantise
+from dpdk_dc_sand_tpu.models.fbengine import _f_stage
 
 
 class FEngine:
     """Per-antenna channeliser front end.
 
     Construct once per configuration; call with an ADC sample block and the
-    current delay solution. All delay values are traced inputs (no
+    current delay solution. Runs the same F stage as the F+B and F+X+B
+    engines. All delay values are traced inputs (no
     recompilation as delays evolve).
 
     Parameters
@@ -47,7 +46,6 @@ class FEngine:
         cfg: ArrayConfig,
         n_spectra: int = 256,
         quant_scale: float = 1.0 / 16.0,
-        use_pallas: bool | None = None,
         quantise_output: bool = True,
     ) -> None:
         self.cfg = cfg
@@ -62,7 +60,6 @@ class FEngine:
                 cfg=cfg,
                 n_spectra=n_spectra,
                 quant_scale=quant_scale,
-                use_pallas=use_pallas,
                 quantise_output=quantise_output,
             )
         )
@@ -128,22 +125,17 @@ def _fengine_step(
     cfg: ArrayConfig,
     n_spectra: int,
     quant_scale: float,
-    use_pallas: bool | None,
     quantise_output: bool = True,
 ) -> jax.Array:
-    out_len = (n_spectra + cfg.n_taps - 1) * cfg.fft_size
-    aligned = coarse_delay(adc, coarse_delays, out_len)
-    spectra = pfb_channelise(
-        aligned, window, n_channels=cfg.n_channels, use_pallas=use_pallas
-    )  # [A, P, S, C] complex64
-    re, im = apply_fine_delay(
-        jnp.real(spectra),
-        jnp.imag(spectra),
-        frac_delays[:, None],
-        phases[:, None],
-        n_channels=cfg.n_channels,
+    re, im = _f_stage(
+        adc,
+        coarse_delays,
+        frac_delays,
+        phases,
+        window=window,
+        cfg=cfg,
+        n_spectra=n_spectra,
+        quant_scale=quant_scale,
+        quantise=quantise_output,
     )
-    stacked = jnp.stack([re, im], axis=-1)
-    if not quantise_output:
-        return stacked * quant_scale
-    return requantise(stacked, quant_scale)
+    return jnp.stack([re, im], axis=-1)

@@ -5,14 +5,10 @@ The full instrument the reference sandbox was building toward
 channelised, delay-corrected, requantised antenna voltages fan out to the
 B-engine (multi-beam matmul) and the X-engine (visibility integration)
 inside one jit — the F-stage output is computed once and consumed twice
-without leaving HBM.
+without leaving device memory.
 
 The F and B stages are the same code paths as :class:`FBEngine`
-(``_f_stage`` / ``_b_stage``), so the FXB node gets the fused Pallas F
-kernel, the Pallas corner-turn B-stage, the batch-A schedule and the
-rolling FIR-history ring — one F feeding X and B is the whole katgpucbf
-premise (merge_gpu_repositories/do_merge.sh:4-10), and it must not run
-~6× slower than the repo's own F kernel.
+(``_f_stage`` / ``_b_stage``).
 """
 
 from __future__ import annotations
@@ -27,17 +23,17 @@ import numpy as np
 from dpdk_dc_sand_tpu.config import ArrayConfig
 from dpdk_dc_sand_tpu.golden.pfb import pfb_window
 from dpdk_dc_sand_tpu.models.fbengine import (
+    BSTAGES,
     _b_stage,
     _coeff_blocks,
     _f_stage,
-    resolve_backends,
 )
 from dpdk_dc_sand_tpu.ops.coeff_gen import steering_key
-from dpdk_dc_sand_tpu.ops.correlate import correlate_planes, correlate_turned
+from dpdk_dc_sand_tpu.ops.correlate import correlate_planes
 
 
 class FXBEngine:
-    """Fused F + X + B signal chain on one chip.
+    """Fused F + X + B signal chain on one device.
 
     Per step returns ``(beams, vis_re, vis_im)``:
 
@@ -48,10 +44,9 @@ class FXBEngine:
       side or via :class:`~dpdk_dc_sand_tpu.models.XEngine` windows),
       with ``n_inputs = n_ants · n_pols``.
 
-    ``fengine`` / ``bstage`` / ``ct_batch_a`` / ``fengine_rolling``
-    follow :class:`FBEngine`: the default ``"auto"`` resolves to the
-    measured-fastest configuration (fused Pallas F kernel + Pallas
-    corner-turn B-stage) on TPU where the geometry supports it.
+    ``bstage`` follows :class:`FBEngine`. ``vis_precision`` selects the
+    visibility arithmetic: ``"int8"`` (default; exact int8×int8→int32
+    gram of the requantised voltages), ``"f32"`` or ``"bf16"``.
     """
 
     def __init__(
@@ -60,71 +55,16 @@ class FXBEngine:
         n_spectra: int = 32,
         quant_scale: float = 1.0 / 16.0,
         precision: str = "f32",
-        use_pallas: bool | None = None,
-        fengine: str = "auto",
-        bstage: str = "auto",
-        ct_batch_a: bool | str = "auto",
-        fengine_rolling: bool | str = "auto",
-        fengine_interpret: bool = False,
+        bstage: str = "planar",
         beam_quant_scale: float | None = None,
-        fengine_pipeline: bool | int = False,
-        vis_precision: str = "auto",
-        fengine_s_blk: int | None = None,
-        fengine_vmem_mb: int | None = None,
-        fengine_tapouter: bool | str = False,
-        fengine_bfuse: bool | str = False,
-        fengine_skew: bool = False,
-        fengine_flat_out: bool | str = "auto",
+        vis_precision: str = "int8",
     ) -> None:
-        if vis_precision not in ("auto", "int8", "f32", "bf16"):
+        if vis_precision not in ("int8", "f32", "bf16"):
             raise ValueError(f"unknown vis_precision {vis_precision!r}")
-        if vis_precision == "auto":
-            # The X stage consumes the F stage's requantised int8
-            # voltages, so the exact int8×int8→int32 MXU gram is the
-            # natural visibility path (ASTRON tensor-core correlator
-            # intent, matrix_multiply.py:74-76).
-            vis_precision = "int8"
+        if bstage not in BSTAGES:
+            raise ValueError(f"unknown bstage {bstage!r}")
         self.vis_precision = vis_precision
-        if fengine not in ("auto", "xla", "fused", "fused_f32"):
-            raise ValueError(f"unknown fengine backend {fengine!r}")
-        if bstage not in ("auto", "planar", "folded", "turned", "fused"):
-            raise ValueError(f"unknown bstage backend {bstage!r}")
-        fengine, bstage, ct_batch_a = resolve_backends(
-            cfg, n_spectra, fengine, bstage, ct_batch_a, fengine_interpret
-        )
-        if fengine_rolling == "auto":
-            from dpdk_dc_sand_tpu.ops.fengine_pallas import rolling_supported
-
-            fengine_rolling = fengine in (
-                "fused",
-                "fused_f32",
-            ) and rolling_supported(cfg.n_channels)
-        self.fengine = fengine
         self.bstage = bstage
-        self.ct_batch_a = ct_batch_a
-        self.fengine_rolling = bool(fengine_rolling)
-        # Same normalisation as FBEngine / the kernel's ct_pipeline
-        # contract: True = 2-way, an int selects the chunk count.
-        self.fengine_pipeline = (
-            2 if fengine_pipeline is True else int(fengine_pipeline)
-        )
-        #: Kernel-tuning overrides, same contract as FBEngine.
-        self.fengine_s_blk = fengine_s_blk
-        self.fengine_vmem_mb = fengine_vmem_mb
-        self.fengine_tapouter = fengine_tapouter
-        self.fengine_bfuse = fengine_bfuse
-        self.fengine_skew = fengine_skew
-        if fengine_flat_out == "auto":
-            # Same resolution as FBEngine: consumer-layout emission
-            # wherever the quantised direct-CT kernel runs.
-            from dpdk_dc_sand_tpu.ops.fengine_pallas import flat_out_auto
-
-            fengine_flat_out = fengine in (
-                "fused", "fused_f32"
-            ) and flat_out_auto(
-                cfg.n_channels, n_spectra, fengine_s_blk, bool(ct_batch_a)
-            )
-        self.fengine_flat_out = bool(fengine_flat_out)
         self.cfg = cfg
         self.n_spectra = n_spectra
         self.window = jnp.asarray(np.asarray(pfb_window(cfg.n_taps, cfg.fft_size)))
@@ -133,10 +73,10 @@ class FXBEngine:
                 _coeff_blocks,
                 cfg=cfg,
                 dtype=jnp.bfloat16 if precision == "bf16" else jnp.float32,
-                folded=(bstage in ("folded", "turned", "fused")),
+                folded=(bstage == "folded"),
             )
         )
-        self._coeffs = None
+        self._coeff_blocks = None
         self._coeff_key = None
         self._step = jax.jit(
             functools.partial(
@@ -146,20 +86,8 @@ class FXBEngine:
                 n_spectra=n_spectra,
                 quant_scale=quant_scale,
                 precision=precision,
-                use_pallas=use_pallas,
-                fengine=fengine,
                 bstage=bstage,
-                ct_batch_a=ct_batch_a,
-                fengine_rolling=self.fengine_rolling,
-                fengine_interpret=fengine_interpret,
                 beam_quant_scale=beam_quant_scale,
-                fengine_pipeline=self.fengine_pipeline,
-                fengine_s_blk=fengine_s_blk,
-                fengine_vmem_mb=fengine_vmem_mb,
-                fengine_tapouter=fengine_tapouter,
-                fengine_bfuse=fengine_bfuse,
-                fengine_skew=fengine_skew,
-                fengine_flat_out=self.fengine_flat_out,
                 vis_precision=vis_precision,
             )
         )
@@ -172,26 +100,26 @@ class FXBEngine:
         """Same contract as :meth:`FBEngine.set_beam_delays` (t_s
         extrapolates via the delay/phase rates, traced, no recompile)."""
         key = steering_key(delay_vals, ant_weights, t_s)
-        if self._coeffs is None or key != self._coeff_key:
+        if self._coeff_blocks is None or key != self._coeff_key:
             w = (
                 jnp.ones(self.cfg.n_ants, jnp.float32)
                 if ant_weights is None
                 else jnp.asarray(ant_weights, jnp.float32)
             )
-            self._coeffs = self._coeff_fn(
+            self._coeff_blocks = self._coeff_fn(
                 jnp.asarray(delay_vals), w, jnp.float32(t_s)
             )
             self._coeff_key = key
 
     def step(self, adc, coarse_delays, frac_delays, phases):
         """Hot-loop step using the cached steering planes."""
-        if self._coeffs is None:
+        if self._coeff_blocks is None:
             raise RuntimeError("call set_beam_delays() first")
-        return self._step(adc, coarse_delays, frac_delays, phases, self._coeffs)
+        return self._step(adc, coarse_delays, frac_delays, phases, self._coeff_blocks)
 
     def __call__(self, adc, coarse_delays, frac_delays, phases, delay_vals):
         self.set_beam_delays(delay_vals)
-        return self._step(adc, coarse_delays, frac_delays, phases, self._coeffs)
+        return self._step(adc, coarse_delays, frac_delays, phases, self._coeff_blocks)
 
     def example_inputs(
         self, seed: int = 2021, margin: int = 64, delay_budget: int | None = None
@@ -226,20 +154,8 @@ def _fxb_step(
     n_spectra: int,
     quant_scale: float,
     precision: str,
-    use_pallas: bool | None,
-    fengine: str = "xla",
     bstage: str = "planar",
-    ct_batch_a: bool = False,
-    fengine_rolling: bool = False,
-    fengine_interpret: bool = False,
     beam_quant_scale: float | None = None,
-    fengine_pipeline: bool = False,
-    fengine_s_blk: int | None = None,
-    fengine_vmem_mb: int | None = None,
-    fengine_tapouter: bool | str = False,
-    fengine_bfuse: bool | str = False,
-    fengine_skew: bool = False,
-    fengine_flat_out: bool = False,
     vis_precision: str = "int8",
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     # ---- shared F stage (same code path as FBEngine) ----
@@ -252,18 +168,6 @@ def _fxb_step(
         cfg=cfg,
         n_spectra=n_spectra,
         quant_scale=quant_scale,
-        use_pallas=use_pallas,
-        fengine=fengine,
-        fengine_interpret=fengine_interpret,
-        ct_batch_a=ct_batch_a,
-        fengine_rolling=fengine_rolling,
-        fengine_pipeline=fengine_pipeline,
-        fengine_s_blk=fengine_s_blk,
-        fengine_vmem_mb=fengine_vmem_mb,
-        fengine_tapouter=fengine_tapouter,
-        fengine_bfuse=fengine_bfuse,
-        fengine_skew=fengine_skew,
-        flat_out=fengine_flat_out,
     )  # [A, P, S, C] int8 planes
 
     # ---- B stage (same code path as FBEngine) ----
@@ -274,49 +178,12 @@ def _fxb_step(
         cfg=cfg,
         precision=precision,
         bstage=bstage,
-        fengine_interpret=fengine_interpret,
         beam_quant_scale=beam_quant_scale,
     )
 
     # ---- X stage over the same quantised voltages ----
     a, p, s, c = qr.shape
-    from dpdk_dc_sand_tpu.ops.corner_turn import (
-        corner_turn_planes_x,
-        corner_turn_x_supported,
-    )
-
-    pallas_ok = fengine_interpret or jax.default_backend() == "tpu"
-    if pallas_ok and corner_turn_x_supported(a, p, s, c):
-        # Pallas X-layout turn (~390 GB/s) + visibility kernel. The XLA
-        # transpose fallback below runs at ~34 GB/s effective and made
-        # the X marginal dominate the FXB step at the flagship config
-        # (2.17x FB); the XLA gram combine added another ~5x the
-        # visibility bytes (benchmarks/fxb_flagship.py round 4).
-        from dpdk_dc_sand_tpu.ops.xcorr_pallas import (
-            correlate_planes_fused,
-            correlate_turned_fused,
-            xcorr_fused_supported,
-            xcorr_supported,
-        )
-
-        if xcorr_fused_supported(a, p, s, c):
-            # Best path: in-VMEM turn + stacked int8 gram in one kernel
-            # — no turned intermediate in HBM. Bit-exact for the int8
-            # planes regardless of vis_precision (ops/xcorr_pallas.py).
-            vis_re, vis_im = correlate_planes_fused(
-                qr, qi, interpret=fengine_interpret,
-                int8_mxu=not fengine_interpret,
-            )
-        else:
-            xt = corner_turn_planes_x(qr, qi, interpret=fengine_interpret)
-            if xcorr_supported(c, s):
-                vis_re, vis_im = correlate_turned_fused(
-                    xt, a * p, interpret=fengine_interpret,
-                    int8_mxu=not fengine_interpret,
-                )
-            else:
-                vis_re, vis_im = correlate_turned(xt, a * p, vis_precision)
-    else:
+    with jax.named_scope("correlate"):
         cr = jnp.transpose(qr, (3, 2, 0, 1)).reshape(c, s, a * p)
         ci = jnp.transpose(qi, (3, 2, 0, 1)).reshape(c, s, a * p)
         vis_re, vis_im = correlate_planes(cr, ci, vis_precision)

@@ -1,4 +1,4 @@
-// Lock-free SPSC chunk ring buffer — the TPU-host replacement for the
+// Lock-free SPSC chunk ring buffer — the accelerator-host replacement for the
 // reference's DPDK extmem chunk pool (dpdk_send_recv/dpdk_send.cpp:62-117:
 // refcounted chunks marked reusable by a free callback; producer spins on
 // chunk.active as backpressure). Here: a single-producer single-consumer

@@ -1,9 +1,9 @@
-"""TPU ops (L2/L3 of the layer map): jittable pure functions.
+"""Device ops (L2/L3 of the layer map): jittable pure functions.
 
-Each op here replaces one reference GPU kernel (SURVEY.md §2.1-2.2) with an
-idiomatic XLA/Pallas equivalent. Ops take runtime arrays plus *static*
-shape parameters (hashable, jit-cacheable) — the TPU analog of the
-reference's per-shape mako/numba JIT specialisation
+Each op here replaces one reference GPU kernel (SURVEY.md §2.1-2.2) with
+plain ``jax.numpy``/``lax`` code that XLA compiles for the device. Ops take
+runtime arrays plus *static* shape parameters (hashable, jit-cacheable) —
+the analog of the reference's per-shape mako/numba JIT specialisation
 (prebeamform_reorder.py:107-118).
 """
 
@@ -22,7 +22,6 @@ from dpdk_dc_sand_tpu.ops.beamform import (  # noqa: F401
     beamform_matrix,
     beamform_planes,
     beamform_planes_folded,
-    beamform_turned,
 )
 from dpdk_dc_sand_tpu.ops.pfb import pfb_fir, pfb_channelise  # noqa: F401
 from dpdk_dc_sand_tpu.ops.delay import (  # noqa: F401
@@ -30,10 +29,6 @@ from dpdk_dc_sand_tpu.ops.delay import (  # noqa: F401
     apply_fine_delay,
 )
 from dpdk_dc_sand_tpu.ops.requant import requantise  # noqa: F401
-from dpdk_dc_sand_tpu.ops.corner_turn import (  # noqa: F401
-    corner_turn_planes,
-    corner_turn_supported,
-)
 from dpdk_dc_sand_tpu.ops.correlate import (  # noqa: F401
     correlate,
     correlate_accumulate,

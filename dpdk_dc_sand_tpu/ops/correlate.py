@@ -1,11 +1,11 @@
-"""X-engine cross-correlation on the MXU.
+"""X-engine cross-correlation as channel-batched matmuls.
 
 The ASTRON tensor-core correlator the reference points at
 (matrix_multiply.py:74-76, merge_gpu_repositories/do_merge.sh) computes
-per-channel visibility matrices on matrix hardware; on TPU this is a
+per-channel visibility matrices on matrix hardware; here this is a
 channel-batched rank-T update ``V[c] = X[c]ᵀ·conj(X[c])`` — two real
-``[A', T] @ [T, A']`` matmuls per complex component, int8 inputs upcast in
-the operand path.
+``[A', T] @ [T, A']`` matmuls per complex component, which XLA hands to
+the device's matrix units.
 """
 
 from __future__ import annotations
@@ -32,14 +32,12 @@ def correlate_planes(
 ) -> tuple[jax.Array, jax.Array]:
     """Visibilities from separate (re, im) plane inputs.
 
-    ``xr, xi``: ``[chan, time, n_inputs]`` — the production fused-pipeline
-    form (trailing-2 interleaved inputs force padded tiled layouts whose
-    copies back-propagate into the producing F stage; see
-    benchmarks/fuse_boundary2.py).
+    ``xr, xi``: ``[chan, time, n_inputs]`` — the form the F stage's
+    separate (re, im) planes feed directly.
 
-    ``precision="int8"`` is the native MXU visibility path for quantised
-    voltages: int8×int8 products accumulate EXACTLY in int32 (the TPU's
-    natural int8 matmul — the ASTRON tensor-core correlator intent,
+    ``precision="int8"`` is the native visibility path for quantised
+    voltages: int8×int8 products accumulate EXACTLY in int32 (an int8
+    matmul on the matrix units — the ASTRON tensor-core correlator intent,
     matrix_multiply.py:74-76) and convert to f32 once at the end.
     Scaling: visibilities are in (requant-code)² units, identical to
     feeding the same int8 values through the f32 path — but bit-exact,
@@ -96,48 +94,3 @@ def correlate_accumulate(
     """
     vre, vim = correlate(samples, precision)
     return acc_re + vre, acc_im + vim
-
-
-@functools.partial(jax.jit, static_argnames=("n_inputs", "precision"))
-def correlate_turned(
-    xt: jax.Array, n_inputs: int, precision: str = "int8"
-) -> tuple[jax.Array, jax.Array]:
-    """Visibilities from the Pallas-turned ``[C, 2I, S]`` planes.
-
-    One batched gram ``G = Y·Yᵀ`` over the stacked (re; im) rows yields
-    all four visibility blocks at the same MAC count as the four
-    separate grams of :func:`correlate_planes`::
-
-        V_re = G[:I, :I] + G[I:, I:]
-        V_im = G[I:, :I] − G[:I, I:]
-
-    ``xt`` comes straight from
-    :func:`~dpdk_dc_sand_tpu.ops.corner_turn.corner_turn_planes_x` — no
-    XLA transpose of the F planes (the ~34 GB/s copy that made the FXB
-    X marginal 2.17× at the flagship config).
-    """
-    i = n_inputs
-    # Four row-sliced grams, NOT one [2I, 2I] gram: at the flagship
-    # config the stacked gram's intermediate is 4x the visibility size
-    # (13.4 GB int32) and blows HBM before the block slices.
-    if precision == "int8":
-        r = xt[:, :i].astype(jnp.int8)
-        im = xt[:, i:].astype(jnp.int8)
-        acc, prec = jnp.int32, None
-    else:
-        dt = jnp.bfloat16 if precision == "bf16" else jnp.float32
-        prec = None if precision == "bf16" else lax.Precision.HIGHEST
-        r = xt[:, :i].astype(dt)
-        im = xt[:, i:].astype(dt)
-        acc = jnp.float32
-
-    def gram(a, b):
-        g = lax.dot_general(
-            a, b, (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=acc, precision=prec,
-        )
-        return g.astype(jnp.float32) if acc is jnp.int32 else g
-
-    vre = gram(r, r) + gram(im, im)
-    vim = gram(im, r) - gram(r, im)
-    return vre, vim

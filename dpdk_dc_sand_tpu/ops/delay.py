@@ -1,4 +1,4 @@
-"""Per-antenna delay correction on TPU (F-engine stages).
+"""Per-antenna delay correction (F-engine stages).
 
 Coarse delay = per-antenna integer-sample stream selection (the reference
 sizes this FIFO from the delay-tracking envelope,

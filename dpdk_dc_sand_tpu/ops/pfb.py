@@ -1,21 +1,14 @@
-"""Polyphase-filterbank channeliser on TPU (the F-engine core).
+"""Polyphase-filterbank channeliser (the F-engine core).
 
 The reference's F-engine lived in katfgpu (merge_gpu_repositories/
 do_merge.sh:4-10); this implements its contract — multi-tap windowed-sinc
 FIR + real FFT with the channelisation acceptance spec of
 ``bdd_experiment/test/features/channelisation.feature:5-9``.
 
-Two FIR paths, numerically identical:
-
-- ``jnp``: unrolled tap sum over overlapping frame slices. Simple, but XLA
-  materialises ~n_taps× HBM read amplification on large inputs.
-- ``pallas``: a kernel that streams each input frame through VMEM exactly
-  once (see :mod:`dpdk_dc_sand_tpu.ops.pfb_pallas`), used automatically on
-  TPU backends for supported shapes — the HBM-roofline path
-  (SURVEY.md §7 "hard parts": PFB at roofline).
-
-The FFT itself is XLA's real FFT, which the TPU backend lowers to an
-MXU-friendly factorisation.
+The FIR is an unrolled tap sum over overlapping frame slices, which XLA
+fuses into one loop over the input; the FFT is XLA's real FFT (cuFFT on a
+GPU). Each runs under its own ``jax.named_scope`` ("fir", "fft") so a
+profiler trace attributes device time to it.
 """
 
 from __future__ import annotations
@@ -38,10 +31,8 @@ def _fir_jnp(frames: jax.Array, window: jax.Array, n_spectra: int) -> jax.Array:
     return out
 
 
-@functools.partial(jax.jit, static_argnames=("use_pallas",))
-def pfb_fir(
-    samples: jax.Array, window: jax.Array, use_pallas: bool | None = None
-) -> jax.Array:
+@jax.jit
+def pfb_fir(samples: jax.Array, window: jax.Array) -> jax.Array:
     """Polyphase FIR: ``[..., n]`` real → ``[..., n_spectra, fft_size]`` f32.
 
     ``n`` must be ``(n_spectra + n_taps − 1) · fft_size``; the first
@@ -56,32 +47,27 @@ def pfb_fir(
     n_spectra = n_frames - n_taps + 1
     if n_spectra < 1:
         raise ValueError("need at least n_taps frames of input")
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     frames = samples.reshape(*samples.shape[:-1], n_frames, fft_size)
-    if use_pallas:
-        from dpdk_dc_sand_tpu.ops.pfb_pallas import fir_pallas, fir_supported
-
-        if fir_supported(frames.shape, n_taps):
-            return fir_pallas(frames, window.astype(jnp.float32), n_spectra)
     return _fir_jnp(frames, window.astype(jnp.float32), n_spectra)
 
 
-@functools.partial(jax.jit, static_argnames=("n_channels", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("n_channels",))
 def pfb_channelise(
     samples: jax.Array,
     window: jax.Array,
     n_channels: int | None = None,
-    use_pallas: bool | None = None,
 ) -> jax.Array:
     """Full PFB: FIR + rFFT keeping ``fft_size // 2`` channels.
 
     ``[..., n]`` real → ``[..., n_spectra, n_channels]`` complex64.
     """
-    fir = pfb_fir(samples, window, use_pallas)
+    with jax.named_scope("fir"):
+        fir = pfb_fir(samples, window)
     if n_channels is None:
         n_channels = window.shape[1] // 2
-    return jnp.fft.rfft(fir, axis=-1)[..., :n_channels].astype(jnp.complex64)
+    with jax.named_scope("fft"):
+        spectra = jnp.fft.rfft(fir, axis=-1)
+    return spectra[..., :n_channels].astype(jnp.complex64)
 
 
 def default_window(n_taps: int, fft_size: int) -> jax.Array:

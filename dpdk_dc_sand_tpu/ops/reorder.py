@@ -1,9 +1,9 @@
-"""Pre-beamform corner-turn reorder on TPU.
+"""Pre-beamform corner-turn reorder.
 
 Replaces the reference's hand-indexed mako/CUDA kernel
 (``beamformer/beamforming/kernels/prebeamform_reorder_kernel.mako:53-80``).
-On TPU the corner turn is a reshape+transpose that XLA lowers to an
-efficient tiled copy — and when composed inside a jitted pipeline it is
+The corner turn is a reshape+transpose that XLA lowers to a tiled
+copy — and when composed inside a jitted pipeline it is
 usually folded into the consumer's operand layout and never materialised
 (SURVEY.md §7 translation table). Standalone form kept for reference-layout
 parity and testing.

@@ -1,8 +1,8 @@
-"""8-bit requantisation on TPU (F-engine output stage).
+"""8-bit requantisation (F-engine output stage).
 
 The inter-engine transport format is 8-bit complex samples
 (prebeamform_reorder.py:153); this is the float→int8 conversion before
-"transmit" (on TPU: before handing the F-engine output to the B-engine /
+"transmit" (here: before handing the F-engine output to the B-engine /
 host egress). Matches :func:`dpdk_dc_sand_tpu.golden.requantise`:
 round-half-even, saturate to ±127.
 """

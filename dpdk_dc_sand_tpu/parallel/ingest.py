@@ -2,14 +2,14 @@
 
 The reference's engines each subscribe to the multicast groups carrying
 their own channel slice (ibverbs_rx.c:207-210; SURVEY.md §5.8). The
-TPU-native equivalent: every host's ingest thread produces only the shard
+JAX equivalent: every host's ingest thread produces only the shard
 its local devices own, `jax.device_put`s those pieces, and
 `jax.make_array_from_single_device_arrays` stitches them into the global
 sharded array consumed by the jitted distributed step — no host ever
 materialises the full array.
 
 Works identically in a single process with N local devices (the test
-configuration) and across real multi-host pods, where
+configuration) and across real multi-host deployments, where
 ``sharding.addressable_devices`` restricts the work to this host's slice.
 """
 
@@ -82,7 +82,7 @@ def initialize_multihost() -> bool:
         return False
     if "cpu" in os.environ.get("JAX_PLATFORMS", ""):
         # CPU pods (the test/dev configuration) need an explicit
-        # cross-process collectives backend; TPU pods use ICI natively.
+        # cross-process collectives backend; GPUs use NCCL.
         try:
             jax.config.update("jax_cpu_collectives_implementation", "gloo")
         except Exception:  # older jaxlib without gloo: let init decide

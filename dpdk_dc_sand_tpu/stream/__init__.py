@@ -1,8 +1,8 @@
-"""Host streaming layer (L4 transport contract, TPU-native).
+"""Host streaming layer (L4 transport contract).
 
 The reference moves sample/beam streams as UDP-multicast SPEAD heaps over
-kernel-bypass NICs (SURVEY.md §5.8). On a TPU system the data plane is
-host memory → HBM, but the *contract* carries over unchanged:
+kernel-bypass NICs (SURVEY.md §5.8). Here the data plane is
+host memory → device memory, but the *contract* carries over unchanged:
 
 - chunked, sequence-numbered payloads with timestamps and channel offsets
   (:mod:`~dpdk_dc_sand_tpu.stream.spead`),

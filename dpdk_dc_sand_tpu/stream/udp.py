@@ -15,6 +15,7 @@ from __future__ import annotations
 import socket
 import struct
 import threading
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -43,6 +44,11 @@ class UdpSender:
 
     Multicast destinations get TTL/loopback options set (the IGMP-join
     counterpart of dpdk_recv.cpp:24-56 lives in :class:`UdpReceiver`).
+
+    ``pace_gbps`` caps the wire rate, as a digitiser's fixed sample rate
+    does: a heap larger than the receiver's socket buffer is otherwise
+    sent faster than :class:`UdpReceiver` drains it, and packets drop.
+    ``None`` sends as fast as the socket takes them.
     """
 
     def __init__(
@@ -51,9 +57,13 @@ class UdpSender:
         mtu_payload: int = 4096,
         reporter: Optional[RateReporter] = None,
         wire_format: str = "lite",
+        pace_gbps: Optional[float] = None,
     ) -> None:
         if wire_format not in ("lite", "spead64"):
             raise ValueError(f"unknown wire_format {wire_format!r}")
+        if pace_gbps is not None and pace_gbps <= 0:
+            raise ValueError("pace_gbps must be positive")
+        self.pace_gbps = pace_gbps
         self.dest = dest
         self.mtu_payload = mtu_payload
         self.reporter = reporter
@@ -84,10 +94,16 @@ class UdpSender:
                 channel_offset=chunk.channel_offset,
                 mtu_payload=self.mtu_payload,
             )
-        for pkt in pkts:
+        t0, sent = time.monotonic(), 0
+        for i, pkt in enumerate(pkts):
             self.sock.sendto(pkt, self.dest)
             self.sent_packets += 1
             self.sent_bytes += len(pkt)
+            sent += len(pkt)
+            if self.pace_gbps is not None and i % 64 == 63:
+                ahead = t0 + sent * 8 / (self.pace_gbps * 1e9) - time.monotonic()
+                if ahead > 0:
+                    time.sleep(ahead)
         if self.reporter is not None:
             self.reporter.account(chunk.payload.nbytes)
 

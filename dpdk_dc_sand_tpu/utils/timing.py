@@ -4,13 +4,12 @@ The reference's C++ ``UnitTest`` template method runs simulate_input →
 (event-timed) transfer_HtoD → run_kernel → transfer_DtoH → verify_output
 and reports per-stage times, names the limiting bus, and computes the
 kernel/PCIe utilisation ratio (common/UnitTest.cpp:28-112). This is the
-TPU equivalent: subclass :class:`PipelineTest`, implement the same five
+JAX equivalent: subclass :class:`PipelineTest`, implement the same five
 hooks, and ``run_test()`` produces a :class:`StageTimes` report.
 
 Timing notes: device stages are walled with ``block_until_ready`` after a
-warm-up iteration so compile time is excluded; on relayed backends where
-per-call dispatch overhead is large, pass ``iters > 1`` — stages are timed
-over ``iters`` repeats and averaged.
+warm-up iteration so compile time is excluded; pass ``iters > 1`` to
+time stages over ``iters`` repeats and average them.
 """
 
 from __future__ import annotations

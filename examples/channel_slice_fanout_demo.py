@@ -3,7 +3,7 @@
 The deployment topology the reference's transport prototypes exist for
 (ibverbs_rx.c:207-210 "subscribe to multiple multicast streams";
 coeff_generator.py:49-53 absolute-channel steering), run end to end on
-one host over real multicast loopback with round-4 components:
+one host over real multicast loopback:
 
   F-engine product (channelised voltages, synthesized)
     ── real SPEAD-64-48 over per-slice multicast groups ──▶
@@ -11,6 +11,11 @@ one host over real multicast loopback with round-4 components:
     each beamforming its slice with xeng_id channel offsets
     └─▶ combined spectrum coverage check + a pcap capture of the
         fan-out analysed for send jitter (packet_latency workflow)
+
+Here the subscribers share one process and one device. In a deployment
+each subscriber node is its own process, and on a GPU host each needs a
+card of its own — start each with its own ``CUDA_VISIBLE_DEVICES`` (a JAX
+process reserves most of a card's memory when it first uses it).
 
 Run: python examples/channel_slice_fanout_demo.py
 """

@@ -1,46 +1,48 @@
-"""Teaching example: vector add as a Pallas TPU kernel.
+"""Teaching example: vector add as a Pallas kernel on the Triton route.
 
 The ``cpp_example``/``pycuda_example`` analog (VectorAddTest.cu,
 pycuda_example/vector_add.py): allocate big vectors, add on the
 accelerator, verify on the host, report stage timings with the
-:class:`PipelineTest` harness. Demonstrates the minimal pallas_call
-pattern (pallas_guide.md "Minimal Kernel") plus the harness every real op
-benchmark uses.
+:class:`PipelineTest` harness. Demonstrates the minimal ``pallas_call``
+pattern for a GPU — one program per block, ``backend="triton"`` — plus
+the harness every real op benchmark uses. ``interpret=True`` runs the
+same kernel through the Pallas interpreter (the CPU tests do).
 
-Run: ``python examples/vector_add_pallas.py [n_elements]``
+Run on a GPU: ``python examples/vector_add_pallas.py [n_elements]``;
+on the CPU: ``python examples/vector_add_pallas.py [n_elements] --interpret``.
 """
 
 import sys
 
 import numpy as np
 
+BLOCK = 1024
 
-def vector_add(x, y):
+
+def vector_add(x, y, interpret: bool = False):
+    """``x + y`` for 1-D arrays whose length is a multiple of ``BLOCK``."""
     import jax
-    import jax.numpy as jnp
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
 
     def kernel(x_ref, y_ref, o_ref):
-        o_ref[:] = x_ref[:] + y_ref[:]
+        o_ref[...] = x_ref[...] + y_ref[...]
 
-    if jax.default_backend() != "tpu":
-        return x + y  # pallas TPU kernels need the TPU backend
-    block = 8 * 128
     n = x.shape[0]
+    if n % BLOCK:
+        raise ValueError(f"length {n} is not a multiple of {BLOCK}")
+    spec = pl.BlockSpec((BLOCK,), lambda i: (i,))
     return pl.pallas_call(
         kernel,
-        grid=(n // block,),
-        in_specs=[
-            pl.BlockSpec((block,), lambda i: (i,), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block,), lambda i: (i,), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((block,), lambda i: (i,), memory_space=pltpu.VMEM),
+        grid=(n // BLOCK,),
+        in_specs=[spec, spec],
+        out_specs=spec,
         out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype),
+        backend="triton",
+        interpret=interpret,
     )(x, y)
 
 
-def main(n: int = 1 << 22) -> None:
+def main(n: int = 1 << 22, interpret: bool = False) -> None:
     from dpdk_dc_sand_tpu.utils import PipelineTest
 
     class VectorAddTest(PipelineTest):
@@ -54,9 +56,12 @@ def main(n: int = 1 << 22) -> None:
             }
 
         def run_kernel(self, device):
+            import functools
+
             import jax
 
-            return {"sum": jax.jit(vector_add)(device["x"], device["y"])}
+            add = jax.jit(functools.partial(vector_add, interpret=interpret))
+            return {"sum": add(device["x"], device["y"])}
 
         def verify_output(self, host_in, host_out):
             return bool(
@@ -68,4 +73,5 @@ def main(n: int = 1 << 22) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]) if len(sys.argv) > 1 else 1 << 22)
+    args = [a for a in sys.argv[1:] if a != "--interpret"]
+    main(int(args[0]) if args else 1 << 22, "--interpret" in sys.argv[1:])

@@ -1,30 +1,21 @@
 """Shared channelisation-qualification measurement helpers.
 
-Used by the interpret-mode qualification
-(``test_channelisation_production.py``) and by the ON-CHIP compiled
-measurement (``tests/tpu/test_ops_on_tpu.py``), so the number in the
-evidence chain comes from the same tone, the same kernel call and the
-same leakage statistic — only ``interpret`` differs.
+Used by the CPU qualification (``test_channelisation_production.py``) and
+by the on-card measurement (``tests/gpu/test_engines_on_gpu.py``), so both
+numbers come from the same tone, the same engine F stage and the same
+leakage statistic — only the device differs.
 """
 
 from __future__ import annotations
 
-import json
-from pathlib import Path
-
 import numpy as np
 
-from dpdk_dc_sand_tpu.golden.pfb import pfb_window
+from dpdk_dc_sand_tpu import golden
 
 LEAKAGE_SPEC_DB = -62.0
 C, TAPS, S = 512, 16, 8
 FFT = 2 * C
 K = 100
-
-#: Committed on-chip evidence artifact (written by the tpu suite).
-ONCHIP_REPORT = (
-    Path(__file__).parent / "reports" / "channelisation_compiled_onchip.json"
-)
 
 
 def make_tone() -> np.ndarray:
@@ -45,28 +36,34 @@ def make_tone() -> np.ndarray:
     return tone.reshape(1, 1, n_frames, FFT)
 
 
-def fused_power(dft_dtype: str, interpret: bool) -> np.ndarray:
-    """Per-channel mean power of the fused kernel's unquantised output."""
-    import jax.numpy as jnp
+def engine_power() -> np.ndarray:
+    """Per-channel mean power of the engine F stage's unquantised output.
 
-    from dpdk_dc_sand_tpu.ops.fengine_pallas import fengine_fused
+    :class:`~dpdk_dc_sand_tpu.models.FEngine` runs the F stage the F+B and
+    F+X+B engines ship; ``quantise_output=False`` emits the rotated f32
+    planes so the int8 transport floor cannot mask the filterbank.
+    """
+    from dpdk_dc_sand_tpu.config import ArrayConfig
+    from dpdk_dc_sand_tpu.models import FEngine
 
-    zero = jnp.zeros((1, 1), jnp.float32)
-    fr, fi = fengine_fused(
-        jnp.asarray(make_tone()),
-        jnp.asarray(np.asarray(pfb_window(TAPS, FFT))),
-        zero,
-        zero,
-        n_channels=C,
-        quant_scale=1.0,
-        dft_dtype=dft_dtype,
-        quantise=False,
-        interpret=interpret,
-    )
-    power = np.asarray(fr, np.float64) ** 2 + np.asarray(fi, np.float64) ** 2
+    cfg = ArrayConfig(n_ants=1, n_channels=C, n_taps=TAPS)
+    fe = FEngine(cfg, n_spectra=S, quant_scale=1.0, quantise_output=False)
+    tone = make_tone().reshape(1, 1, -1)
+    adc = np.broadcast_to(tone, (1, cfg.n_pols, tone.shape[-1])).copy()
+    zero = np.zeros(1, np.float32)
+    out = np.asarray(fe(adc, np.zeros(1, np.int32), zero, zero), np.float64)
+    power = out[..., 0] ** 2 + out[..., 1] ** 2  # [A, P, S, C]
     # Average over spectra: tightens the dither-floor variance (the
     # floor's expectation is set by the dither, not by averaging).
     return power[0, 0].mean(axis=0)
+
+
+def golden_power() -> np.ndarray:
+    """The same statistic from the host golden PFB (numpy FFT)."""
+    spectra = golden.pfb_channelise(
+        make_tone().reshape(-1).astype(np.float32), golden.pfb_window(TAPS, FFT)
+    )
+    return (np.abs(spectra.astype(np.complex128)) ** 2).mean(axis=0)
 
 
 def worst_leakage_db(power: np.ndarray) -> float:
@@ -74,10 +71,3 @@ def worst_leakage_db(power: np.ndarray) -> float:
     mask = np.ones(C, bool)
     mask[K] = False
     return float(rel_db[mask].max())
-
-
-def load_onchip_report() -> dict | None:
-    if ONCHIP_REPORT.exists():
-        with open(ONCHIP_REPORT) as f:
-            return json.load(f)
-    return None

@@ -36,7 +36,7 @@ def test_steered_beam_recovers_array_gain(report):
         "gradients",
     )
     cfg = ArrayConfig(n_ants=4, n_channels=128, n_beams=2, n_taps=8)
-    fb = FBEngine(cfg, n_spectra=8, quant_scale=1.0, use_pallas=False)
+    fb = FBEngine(cfg, n_spectra=8, quant_scale=1.0)
     # Uniform phase gradient spanning a full turn: the un-steered
     # (boresight) sum Σ e^{i·a·2π/n} is an exact null, so off-source
     # rejection is limited only by the digitiser quantisation.
@@ -57,7 +57,7 @@ def test_steered_beam_recovers_array_gain(report):
 
     # Single-antenna reference: one antenna's channelised power.
     solo_cfg = ArrayConfig(n_ants=1, n_channels=128, n_beams=1, n_taps=8)
-    solo = FBEngine(solo_cfg, n_spectra=8, quant_scale=1.0, use_pallas=False)
+    solo = FBEngine(solo_cfg, n_spectra=8, quant_scale=1.0)
     adc0 = adc[:1]
     out0 = np.asarray(
         solo(
@@ -88,7 +88,7 @@ def test_steered_beam_recovers_array_gain(report):
 def test_antenna_weights_scale_the_beam(report):
     report.step("Given", "a steered beam with one antenna weighted to zero")
     cfg = ArrayConfig(n_ants=4, n_channels=128, n_beams=1, n_taps=8)
-    fb = FBEngine(cfg, n_spectra=8, quant_scale=1.0, use_pallas=False)
+    fb = FBEngine(cfg, n_spectra=8, quant_scale=1.0)
     adc = _phased_array(fb, np.zeros(cfg.n_ants))
     zeros_i = np.zeros(cfg.n_ants, np.int32)
     zeros_f = np.zeros(cfg.n_ants, np.float32)

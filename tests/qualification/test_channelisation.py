@@ -1,6 +1,6 @@
 """Channelisation qualification test (Given/When/Then over the real op).
 
-Implements ``features/channelisation.feature`` against the TPU F-engine
+Implements ``features/channelisation.feature`` against the device F-engine
 path, with evidence threaded through the report fixture — the
 bdd_experiment pattern (step_defs/test_channelisation.py:8-33) without the
 pytest-bdd dependency (unavailable here).
@@ -41,7 +41,7 @@ def test_cw_tone_at_channel_centre(report):
     # transport format's per-bin quantisation floor (~-40 dB) cannot
     # express a -62 dB bound (its placement behaviour is covered below).
     fe = FEngine(
-        cfg, n_spectra=8, quant_scale=1.0, use_pallas=False,
+        cfg, n_spectra=8, quant_scale=1.0,
         quantise_output=False,
     )
 
@@ -78,7 +78,7 @@ def test_cw_tone_sweep(report):
         "Given", "an F-engine configured with 128 channels and a 16-tap PFB"
     )
     cfg = ArrayConfig(n_ants=1, n_channels=128, n_taps=16)
-    fe = FEngine(cfg, n_spectra=8, quant_scale=1.0, use_pallas=False)
+    fe = FEngine(cfg, n_spectra=8, quant_scale=1.0)
     channels = [3, 17, 64, 100, 126]
     report.step("When", f"tones at channel centres {channels} are channelised")
     peaks = []

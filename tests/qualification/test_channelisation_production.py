@@ -1,107 +1,71 @@
-"""Channelisation qualification of the PRODUCTION fused kernel.
+"""Channelisation qualification of the engines' own F stage.
 
 Implements ``features/channelisation_production.feature``: the evidence
-reports must cover the F path that ships — the fused Pallas kernel with
-bf16 DFT operands (``ops/fengine_pallas.py``, FBEngine's resolved
-default on TPU) — not only the portable XLA chain qualified in
-``test_channelisation.py``. The kernel's ``quantise=False`` mode emits
-the rotated f32 planes so the int8 transport floor cannot mask the
-filterbank response; the remaining floor is the *input* digitiser
-quantisation (int8 ADC), reported as evidence.
+must cover the F path that ships — the shared F stage of ``FBEngine``,
+``FXBEngine`` and ``FEngine`` (coarse delay → tap-sum FIR → XLA real FFT
+→ fine delay) — measured on its unquantised f32 output so the int8
+transport floor cannot mask the filterbank response. The remaining floor
+is the *input* digitiser quantisation (int8 ADC), reported as evidence.
+The same measurement runs on the card in ``tests/gpu``.
 """
 
 import numpy as np
 
 from tests.qualification.chan_common import (
     C,
-    FFT,
     K,
     LEAKAGE_SPEC_DB,
-    S,
     TAPS,
-    fused_power,
-    load_onchip_report,
+    engine_power,
+    golden_power,
     worst_leakage_db,
 )
 
 
-def _fused_power(dft_dtype: str) -> np.ndarray:
-    return fused_power(dft_dtype, interpret=True)
-
-
-def _worst_leakage_db(power: np.ndarray) -> float:
-    return worst_leakage_db(power)
-
-
-def test_production_fused_bf16_leakage(report):
+def test_production_engine_leakage(report):
     report.step(
         "Given",
-        f"the production fused F kernel with {C} channels and a "
-        f"{TAPS}-tap PFB (bf16 DFT operands, the shipped default)",
+        f"the engines' F stage with {C} channels and a {TAPS}-tap PFB",
     )
     report.step(
         "When",
         f"an int8 digitiser CW tone at the centre of channel {K} is "
-        "channelised without requantisation (quantise=False)",
+        "channelised without requantisation",
     )
-    power = _fused_power("bfloat16")
+    power = engine_power()
     peak = int(np.argmax(power))
     report.step(
         "Then", "the peak response lands in the tone's channel",
         peak_channel=peak,
     )
     assert peak == K
-    worst = _worst_leakage_db(power)
+    worst = worst_leakage_db(power)
     report.step(
         "And",
         "the response in every other channel is at least 62 dB down",
         worst_leakage_db=round(worst, 2),
         spec_db=LEAKAGE_SPEC_DB,
-        note=(
-            "floor is the int8 ADC input quantisation, not the "
-            "filterbank or bf16 rounding"
-        ),
+        note="floor is the int8 ADC input quantisation, not the filterbank",
     )
     report.detail_entry("leakage_margin_db", round(LEAKAGE_SPEC_DB - worst, 2))
-    onchip = load_onchip_report()
-    if onchip is not None:
-        # The COMPILED kernel's own measured number, produced on real
-        # TPU hardware by tests/tpu/test_ops_on_tpu.py::
-        # test_compiled_bf16_leakage_on_tpu and committed as
-        # reports/channelisation_compiled_onchip.json — the evidence
-        # chain does not rest on interpret mode alone.
-        report.step(
-            "And",
-            "the compiled (non-interpret) bf16 kernel measured the same "
-            "spec compliance on TPU hardware",
-            **{k: onchip[k] for k in (
-                "worst_leakage_db", "peak_channel", "platform", "date"
-            ) if k in onchip},
-        )
-        report.detail_entry(
-            "compiled_onchip_worst_leakage_db", onchip.get("worst_leakage_db")
-        )
-        assert onchip["worst_leakage_db"] <= LEAKAGE_SPEC_DB
     assert worst <= LEAKAGE_SPEC_DB
 
 
-def test_production_bf16_vs_f32_operands(report):
+def test_production_engine_matches_golden_floor(report):
     report.step(
         "Given",
-        f"the production fused F kernel with {C} channels and a "
-        f"{TAPS}-tap PFB",
+        f"the engines' F stage and the golden PFB, {C} channels, "
+        f"{TAPS} taps",
     )
-    report.step(
-        "When", "the same tone is channelised with bf16 and exact f32 DFTs"
-    )
-    worst_bf16 = _worst_leakage_db(_fused_power("bfloat16"))
-    worst_f32 = _worst_leakage_db(_fused_power("float32"))
+    report.step("When", "both channelise the same tone")
+    worst_engine = worst_leakage_db(engine_power())
+    worst_golden = worst_leakage_db(golden_power())
     report.step(
         "Then",
-        "bf16 operand rounding does not lift the leakage floor "
-        "(non-accumulating: f32 accumulate)",
-        worst_bf16_db=round(worst_bf16, 2),
-        worst_f32_db=round(worst_f32, 2),
+        "the device FFT's float32 arithmetic does not lift the leakage "
+        "floor above the golden model's",
+        worst_engine_db=round(worst_engine, 2),
+        worst_golden_db=round(worst_golden, 2),
     )
-    assert worst_bf16 <= worst_f32 + 6.0
-    assert worst_bf16 <= LEAKAGE_SPEC_DB
+    assert abs(worst_engine - worst_golden) <= 1.0
+    assert worst_engine <= LEAKAGE_SPEC_DB

@@ -36,7 +36,7 @@ def test_delay_chain_realigns(report):
     )
     cfg = ArrayConfig(n_ants=2, n_channels=128, n_taps=8)
     fe = FEngine(
-        cfg, n_spectra=8, quant_scale=1.0, use_pallas=False,
+        cfg, n_spectra=8, quant_scale=1.0,
         quantise_output=False,
     )
     adc = _delayed_pair(fe)
@@ -83,7 +83,7 @@ def test_uncorrected_delay_decorrelates(report):
     )
     cfg = ArrayConfig(n_ants=2, n_channels=128, n_taps=8)
     fe = FEngine(
-        cfg, n_spectra=8, quant_scale=1.0, use_pallas=False,
+        cfg, n_spectra=8, quant_scale=1.0,
         quantise_output=False,
     )
     adc = _delayed_pair(fe)

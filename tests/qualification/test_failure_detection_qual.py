@@ -49,7 +49,7 @@ def test_step_failure_degrades_not_kills(report):
             beams.append(seq)
 
         node = EngineNode(
-            CFG, n_spectra=4, use_pallas=False, on_beams=on_beams
+            CFG, n_spectra=4, on_beams=on_beams
         )
         await node.start()
         try:
@@ -84,7 +84,7 @@ def test_sequence_gap_raises_lost_sensor(report):
         report.step("Given", "a running engine node")
         processed = []
         node = EngineNode(
-            CFG, n_spectra=4, use_pallas=False,
+            CFG, n_spectra=4,
             on_beams=lambda b, s: processed.append(s),
         )
         await node.start()
@@ -110,7 +110,7 @@ def test_malformed_chunk_contained(report):
         report.step("Given", "a running engine node")
         processed = []
         node = EngineNode(
-            CFG, n_spectra=4, use_pallas=False,
+            CFG, n_spectra=4,
             on_beams=lambda b, s: processed.append(s),
         )
         await node.start()

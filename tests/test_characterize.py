@@ -4,9 +4,9 @@ import numpy as np
 
 from dpdk_dc_sand_tpu.characterize import (
     TransferRateTest,
-    matmul_roofline,
+    matmul_rate,
     mem_rate_sweep,
-    mxu_dynamic_range,
+    tc_dynamic_range,
 )
 from dpdk_dc_sand_tpu.utils import PipelineTest
 
@@ -77,17 +77,30 @@ class TestMemBw:
 
 class TestMxu:
     def test_dynamic_range_f32_survives(self):
-        res = mxu_dynamic_range(dtype="float32")
+        res = tc_dynamic_range(dtype="float32")
         assert res["survives"] == 1.0
         assert res["rel_err"] < 1e-6
 
     def test_dynamic_range_bf16_within_mantissa(self):
-        res = mxu_dynamic_range(dtype="bfloat16")
+        res = tc_dynamic_range(dtype="bfloat16")
         # bf16 keeps the exponent range; error bounded by significand
         assert res["rel_err"] < 2 ** -7
 
+    def test_dynamic_range_fp16_small_operand_subnormal(self):
+        # 65000 stays finite in fp16 (max 65504); 1.5e-5 is subnormal,
+        # so it keeps ~8 significand bits: the product survives, rounded.
+        res = tc_dynamic_range(dtype="float16")
+        assert np.isfinite(res["got"])
+        assert 0 < res["rel_err"] < 2 ** -7
+
+    def test_dynamic_range_rejects_unknown_dtype(self):
+        import pytest
+
+        with pytest.raises(ValueError, match="dtype"):
+            tc_dynamic_range(dtype="int4")
+
     def test_roofline_runs(self):
-        r = matmul_roofline(n=256, iters=2)
+        r = matmul_rate(n=256, iters=2)
         assert r["tflops"] > 0
 
 

@@ -91,7 +91,7 @@ def test_xengine_window_integration():
 
 
 def test_int8_path_exact_vs_int64_golden():
-    """The int8×int8→int32 MXU path is bit-exact against an integer
+    """The int8×int8→int32 path is bit-exact against an integer
     golden model — stronger than the f32 path's tolerance gate."""
     x = _planar(chan=3, t=257, inputs=7)
     vre, vim = ops.correlate(x, precision="int8")
@@ -133,9 +133,9 @@ def test_fxb_vis_precision_int8_default():
     from dpdk_dc_sand_tpu.models import FXBEngine
 
     cfg = ArrayConfig(n_ants=3, n_channels=128, n_beams=2, n_taps=4)
-    eng8 = FXBEngine(cfg, n_spectra=8, use_pallas=False)
+    eng8 = FXBEngine(cfg, n_spectra=8)
     assert eng8.vis_precision == "int8"
-    engf = FXBEngine(cfg, n_spectra=8, use_pallas=False, vis_precision="f32")
+    engf = FXBEngine(cfg, n_spectra=8, vis_precision="f32")
     adc, cd, fd, ph = eng8.example_inputs()[:4]
     dv = np.zeros((cfg.n_beams, cfg.n_ants, 4), np.float32)
     b8, vr8, vi8 = eng8(adc, cd, fd, ph, dv)
@@ -143,91 +143,3 @@ def test_fxb_vis_precision_int8_default():
     np.testing.assert_array_equal(np.asarray(b8), np.asarray(bf))
     np.testing.assert_allclose(np.asarray(vr8), np.asarray(vrf), rtol=1e-6)
     np.testing.assert_allclose(np.asarray(vi8), np.asarray(vif), rtol=1e-6)
-
-
-def test_corner_turn_x_and_turned_correlator_match_planes():
-    """The Pallas X-layout turn + one-gram correlator equal the
-    transpose+four-gram path (the FXB fast X path, interpret mode)."""
-    import jax.numpy as jnp
-
-    from dpdk_dc_sand_tpu.ops.corner_turn import (
-        corner_turn_planes_x,
-        corner_turn_x_supported,
-    )
-    from dpdk_dc_sand_tpu.ops.correlate import correlate_turned
-
-    A, P, S, C = 3, 2, 128, 128
-    assert corner_turn_x_supported(A, P, S, C)
-    rng = np.random.default_rng(11)
-    qr = jnp.asarray(rng.integers(-100, 100, (A, P, S, C), dtype=np.int8))
-    qi = jnp.asarray(rng.integers(-100, 100, (A, P, S, C), dtype=np.int8))
-    xt = corner_turn_planes_x(qr, qi, interpret=True)
-    cr = jnp.transpose(qr, (3, 2, 0, 1)).reshape(C, S, A * P)
-    ci = jnp.transpose(qi, (3, 2, 0, 1)).reshape(C, S, A * P)
-    for precision in ("int8", "f32", "bf16"):
-        want = ops.correlate_planes(cr, ci, precision)
-        got = correlate_turned(xt, A * P, precision)
-        for w, g in zip(want, got):
-            np.testing.assert_allclose(
-                np.asarray(g), np.asarray(w), rtol=1e-2, atol=2.0
-            )
-
-
-def test_fxb_uses_turned_x_path_when_supported():
-    """FXB with a 128-multiple spectra count routes X through the Pallas
-    turn; results must equal the small-shape transpose path."""
-    from dpdk_dc_sand_tpu.models import FXBEngine
-
-    cfg = ArrayConfig(n_ants=3, n_channels=128, n_beams=2, n_taps=4)
-    turned = FXBEngine(
-        cfg, n_spectra=128, use_pallas=False, fengine_interpret=True
-    )
-    adc, cd, fd, ph, dv = turned.example_inputs()
-    bt, vrt, vit = turned(adc, cd, fd, ph, dv)
-
-    # Reference: the transpose path, forced by a non-128 spectra count
-    # is not comparable; instead recompute visibilities directly.
-    from dpdk_dc_sand_tpu.models.fbengine import _f_stage
-    import jax.numpy as jnp
-
-    qr, qi = _f_stage(
-        jnp.asarray(adc), jnp.asarray(cd), jnp.asarray(fd), jnp.asarray(ph),
-        window=turned.window, cfg=cfg, n_spectra=128,
-        quant_scale=1.0 / 16.0, use_pallas=False, fengine="xla",
-        fengine_interpret=False, ct_batch_a=False, fengine_rolling=False,
-        fengine_pipeline=0,
-    )
-    a, p, s, c = qr.shape
-    cr = jnp.transpose(qr, (3, 2, 0, 1)).reshape(c, s, a * p)
-    ci = jnp.transpose(qi, (3, 2, 0, 1)).reshape(c, s, a * p)
-    want = ops.correlate_planes(cr, ci, "int8")
-    np.testing.assert_allclose(np.asarray(vrt), np.asarray(want[0]), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(vit), np.asarray(want[1]), rtol=1e-5)
-
-
-def test_xcorr_pallas_kernel_bit_exact():
-    """The Pallas visibility kernel equals the int64 integer golden
-    model exactly (the bf16-product/f32-accumulate trick is exact for
-    int8 inputs at S <= 1024)."""
-    import jax.numpy as jnp
-
-    from dpdk_dc_sand_tpu.ops.xcorr_pallas import (
-        correlate_turned_fused,
-        xcorr_supported,
-    )
-
-    I, S, C = 6, 128, 16
-    assert xcorr_supported(C, S)
-    rng = np.random.default_rng(5)
-    xt = jnp.asarray(rng.integers(-127, 128, (C, 2 * I, S), dtype=np.int8))
-    vre, vim = correlate_turned_fused(xt, I, interpret=True)
-    r = np.asarray(xt)[:, :I].astype(np.int64)
-    im = np.asarray(xt)[:, I:].astype(np.int64)
-    want_re = np.einsum("cis,cjs->cij", r, r) + np.einsum(
-        "cis,cjs->cij", im, im
-    )
-    want_im = np.einsum("cis,cjs->cij", im, r) - np.einsum(
-        "cis,cjs->cij", r, im
-    )
-    np.testing.assert_array_equal(np.asarray(vre), want_re.astype(np.float32))
-    np.testing.assert_array_equal(np.asarray(vim), want_im.astype(np.float32))

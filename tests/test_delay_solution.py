@@ -60,7 +60,7 @@ def test_full_correction_recoheres_through_fengine():
     """Wavefront late by 5.3 samples; the split solution restores exact
     coherence with the on-time antenna through the real F-engine chain."""
     cfg = ArrayConfig(n_ants=2, n_channels=128, n_taps=8)
-    fe = FEngine(cfg, n_spectra=8, quant_scale=1.0, use_pallas=False,
+    fe = FEngine(cfg, n_spectra=8, quant_scale=1.0,
                  quantise_output=False)
     fft = cfg.fft_size
     k = 40

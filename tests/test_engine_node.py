@@ -48,7 +48,6 @@ def test_chunks_become_beams_and_sensors_update():
             CFG,
             n_spectra=8,
             on_beams=lambda b, seq: beams_out.append((seq, b)),
-            use_pallas=False,
         )
         await node.start()
         client = await Client("127.0.0.1", node.port).connect()
@@ -81,7 +80,6 @@ def test_delay_model_update_changes_output():
             CFG,
             n_spectra=8,
             on_beams=lambda b, seq: beams_out.append(b),
-            use_pallas=False,
         )
         await node.start()
         client = await Client("127.0.0.1", node.port).connect()
@@ -134,7 +132,6 @@ def test_delay_rate_rotates_beams_over_time():
             CFG,
             n_spectra=8,
             on_beams=lambda b, seq: beams_out.append((seq, b)),
-            use_pallas=False,
             coeff_update_steps=1,  # re-extrapolate every chunk
         )
         await node.start()
@@ -180,7 +177,6 @@ def test_capture_stop_pauses_processing():
         beams_out = []
         node = EngineNode(
             CFG, n_spectra=8, on_beams=lambda b, s: beams_out.append(s),
-            use_pallas=False,
         )
         await node.start()
         client = await Client("127.0.0.1", node.port).connect()
@@ -201,7 +197,7 @@ def test_capture_stop_pauses_processing():
 
 def test_ring_overrun_counts_drops():
     async def scenario():
-        node = EngineNode(CFG, n_spectra=8, ring_slots=2, use_pallas=False)
+        node = EngineNode(CFG, n_spectra=8, ring_slots=2)
         # do NOT start: ring fills with no consumer
         data = make_chunk(0, node)
         assert node.submit_chunk(data, 0)
@@ -220,7 +216,6 @@ def test_beam_weights_scale_output():
         beams_out = []
         node = EngineNode(
             CFG, n_spectra=8, on_beams=lambda b, s: beams_out.append(b),
-            use_pallas=False,
         )
         await node.start()
         client = await Client("127.0.0.1", node.port).connect()
@@ -251,11 +246,9 @@ def test_device_quantised_beam_output():
         f32_out, int8_out = [], []
         node_f32 = EngineNode(
             CFG, n_spectra=8, on_beams=lambda b, s: f32_out.append(b),
-            use_pallas=False,
         )
         node_i8 = EngineNode(
-            CFG, n_spectra=8, on_beams=lambda b, s: int8_out.append(b),
-            use_pallas=False, beam_quant_scale=0.25,
+            CFG, n_spectra=8, on_beams=lambda b, s: int8_out.append(b), beam_quant_scale=0.25,
         )
         await node_f32.start()
         await node_i8.start()
@@ -312,7 +305,6 @@ def test_visibility_egress_end_to_end():
         node = EngineNode(
             CFG,
             n_spectra=8,
-            use_pallas=False,
             emit_visibilities=True,
             vis_accum_steps=2,
             on_beams=lambda b, s: beams_out.append(s),
@@ -345,7 +337,7 @@ def test_visibility_egress_end_to_end():
             assert len(beams_out) == 4  # beams emitted every chunk too
 
             # golden: correlate the F-stage output of each window's chunks
-            fe = FEngine(CFG, n_spectra=8, use_pallas=False)
+            fe = FEngine(CFG, n_spectra=8)
             zi = np.zeros(CFG.n_ants, np.int32)
             zf = np.zeros(CFG.n_ants, np.float32)
             for w, (first_seq, vis) in enumerate(dumps):
@@ -380,7 +372,7 @@ def test_udp_ingest_to_udp_egress_end_to_end():
     from dpdk_dc_sand_tpu.stream.spead import HeapAssembler
 
     async def scenario():
-        node = EngineNode(CFG, n_spectra=8, use_pallas=False)
+        node = EngineNode(CFG, n_spectra=8)
         rx = node.attach_udp_ingest()
         # beam capture: a receiver on the egress side
         beam_ring = ChunkRing(8, 2 * 128 * 8 * 2 * 2 + 64)
@@ -417,63 +409,6 @@ def test_udp_ingest_to_udp_egress_end_to_end():
     run(scenario())
 
 
-def test_default_margin_provisions_kernel_coarse_path():
-    """A node built with the default margin must take the in-kernel
-    coarse-delay fast path whenever the fused F kernel runs: the chunk
-    carries delay_budget + dma_slack headroom, satisfying the trace-time
-    gate in models/fbengine._f_stage (adc >= out_len + margin_need). A
-    margin-accounting change that silently dropped the slack would fail
-    here long before a slow step showed up in a benchmark.
-    """
-    from dpdk_dc_sand_tpu.ops.fengine_pallas import (
-        coarse_margin_samples,
-        ingest_alignment,
-    )
-
-    cfg = ArrayConfig(n_ants=4, n_channels=512, n_beams=2, n_taps=4)
-    node = EngineNode(cfg, n_spectra=16, fengine="fused_f32")
-    assert node.fb.fengine == "fused_f32"
-    need = coarse_margin_samples(
-        cfg.fft_size, cfg.n_taps, 16, node.fb.ct_batch_a
-    )
-    assert need is not None and need > 0
-    assert node.dma_slack >= need
-    assert node.delay_budget == 64  # the constructor default, unchanged
-    assert node.margin == node.delay_budget + node.dma_slack
-    # The exact condition _f_stage evaluates at trace time (chunk_shape
-    # is wire-rowed [A, P, rows, N2] on the fused path, so the sample
-    # count is the trailing-dims product):
-    out_len = (16 + cfg.n_taps - 1) * cfg.fft_size
-    samples = int(np.prod(node.chunk_shape[2:]))
-    assert samples >= out_len + need
-    # ...and the chunk is born in the kernel's rowed ingest layout, so
-    # the step pays neither the slice copy nor the whole-stream
-    # relayout (ingest_alignment(); benchmarks/dma_bisect.py).
-    assert node.chunk_shape[-1] == ingest_alignment(cfg.fft_size)
-    assert len(node.chunk_shape) == 4
-
-
-def test_engine_opts_reach_the_engine_and_margin_math():
-    """engine_opts forwards kernel-tuning knobs to the underlying
-    engine (the production node must be able to run bench.py's
-    measured-best configuration), and the coarse-margin accounting uses
-    the OVERRIDDEN s_blk — a stale default there would under-provision
-    the chunk and silently fall back to the XLA alignment pass."""
-    from dpdk_dc_sand_tpu.ops.fengine_pallas import coarse_margin_samples
-
-    cfg = ArrayConfig(n_ants=4, n_channels=512, n_beams=2, n_taps=4)
-    node = EngineNode(
-        cfg, n_spectra=16, fengine="fused_f32",
-        engine_opts=dict(fengine_s_blk=16, fengine_vmem_mb=96),
-    )
-    assert node.fb.fengine_s_blk == 16
-    assert node.fb.fengine_vmem_mb == 96
-    need = coarse_margin_samples(
-        cfg.fft_size, cfg.n_taps, 16, node.fb.ct_batch_a, 16
-    )
-    assert need is not None and node.dma_slack >= need
-
-
 def test_delay_model_rejects_out_of_budget_coarse():
     """?delay-model coarse values beyond the node's budget fail loudly
     instead of being silently clipped inside the kernel."""
@@ -503,7 +438,7 @@ def test_engine_node_ingests_spead64():
         beams = []
         cfg = ArrayConfig(n_ants=2, n_channels=128, n_beams=2, n_taps=4)
         node = EngineNode(
-            cfg, n_spectra=4, use_pallas=False,
+            cfg, n_spectra=4,
             on_beams=lambda b, seq: beams.append((seq, b.copy())),
         )
         rx = node.attach_udp_ingest()

@@ -2,7 +2,7 @@
 
 These validate the golden models against first principles: direct loop
 implementations, analytic signals, and complex-vs-real-layout consistency —
-so that downstream TPU-op parity tests inherit a trustworthy reference.
+so that downstream device-op parity tests inherit a trustworthy reference.
 """
 
 import numpy as np

@@ -1,6 +1,6 @@
 """Engine-model tests: the reference's fused op-sequence test pattern.
 
-``test_bengine_matches_golden_chain`` is the TPU analog of
+``test_bengine_matches_golden_chain`` is the JAX analog of
 ``beamform_op_sequence_test.py:37-200`` (random input through the fused
 chain vs the CPU golden chain at rtol=atol=1e-4); the F-engine and fused
 F+B tests add the physics checks the reference's BDD channelisation spec
@@ -46,7 +46,7 @@ class TestFEngine:
     cfg = ArrayConfig(n_ants=3, n_channels=128, n_taps=8)
 
     def test_matches_golden_chain(self):
-        fe = FEngine(self.cfg, n_spectra=8, use_pallas=False)
+        fe = FEngine(self.cfg, n_spectra=8)
         adc, cd, fd, ph = fe.example_inputs()
         got = np.asarray(fe(adc, cd, fd, ph))
         assert got.shape == (3, 2, 8, 128, 2)
@@ -70,7 +70,7 @@ class TestFEngine:
             assert (diff > 0).mean() < 0.02
 
     def test_tone_lands_in_channel(self):
-        fe = FEngine(self.cfg, n_spectra=8, quant_scale=1.0, use_pallas=False)
+        fe = FEngine(self.cfg, n_spectra=8, quant_scale=1.0)
         k = 37
         n = np.arange(fe.samples_in + 64)
         tone = 100 * np.cos(2 * np.pi * k * n / self.cfg.fft_size)
@@ -90,12 +90,12 @@ class TestFBEngine:
     cfg = ArrayConfig(n_ants=4, n_channels=128, n_beams=2, n_taps=8)
 
     def test_matches_fengine_plus_golden_beamform(self):
-        fb = FBEngine(self.cfg, n_spectra=8, use_pallas=False)
+        fb = FBEngine(self.cfg, n_spectra=8)
         adc, cd, fd, ph, dv = fb.example_inputs()
         got = np.asarray(fb(adc, cd, fd, ph, dv))
         assert got.shape == (2, 128, 8, 2, 2)
 
-        fe = FEngine(self.cfg, n_spectra=8, use_pallas=False)
+        fe = FEngine(self.cfg, n_spectra=8)
         quant = np.asarray(fe(adc, cd, fd, ph))  # [A, P, S, C, 2]
         x = quant[..., 0].astype(np.float64) + 1j * quant[..., 1]
         x = x.transpose(1, 3, 2, 0)  # [P, C, S, A]
@@ -113,9 +113,9 @@ class TestFBEngine:
         """8-bit beam transport format: int8 beams = requantised f32 beams."""
         from dpdk_dc_sand_tpu.golden import requantise as golden_requant
 
-        fb32 = FBEngine(self.cfg, n_spectra=8, use_pallas=False)
+        fb32 = FBEngine(self.cfg, n_spectra=8)
         fb8 = FBEngine(
-            self.cfg, n_spectra=8, use_pallas=False, beam_quant_scale=1 / 8
+            self.cfg, n_spectra=8, beam_quant_scale=1 / 8
         )
         adc, cd, fd, ph, dv = fb32.example_inputs()
         beams = np.asarray(fb32(adc, cd, fd, ph, dv))
@@ -126,7 +126,7 @@ class TestFBEngine:
     def test_coherent_gain_on_aligned_tone(self):
         """Steered beam on an aligned array shows n_ants² power gain."""
         cfg = self.cfg
-        fb = FBEngine(cfg, n_spectra=8, quant_scale=1.0, use_pallas=False)
+        fb = FBEngine(cfg, n_spectra=8, quant_scale=1.0)
         k = 40
         n = np.arange(fb.samples_in + 8)
         tone = (80 * np.cos(2 * np.pi * k * n / cfg.fft_size)).astype(np.int8)
@@ -145,7 +145,7 @@ class TestFBEngine:
         assert p0 > 0
         assert p1 < 0.5 * p0
         # cross-check coherent gain against one antenna's channelised power
-        fe = FEngine(cfg, n_spectra=8, quant_scale=1.0, use_pallas=False)
+        fe = FEngine(cfg, n_spectra=8, quant_scale=1.0)
         q = np.asarray(fe(adc, zeros_i, zeros_f, zeros_f))
         p_single = float(q[0, 0, 4, k, 0]) ** 2 + float(q[0, 0, 4, k, 1]) ** 2
         assert p0 == pytest.approx(cfg.n_ants**2 * p_single, rel=1e-3)
@@ -158,7 +158,7 @@ class TestFXBEngine:
         from dpdk_dc_sand_tpu.models import FXBEngine
 
         cfg = ArrayConfig(n_ants=3, n_channels=128, n_beams=2, n_taps=4)
-        fxb = FXBEngine(cfg, n_spectra=8, use_pallas=False)
+        fxb = FXBEngine(cfg, n_spectra=8)
         adc, cd, fd, ph, dv = fxb.example_inputs()
         beams, vre, vim = fxb(adc, cd, fd, ph, dv)
         beams = np.asarray(beams)
@@ -166,12 +166,12 @@ class TestFXBEngine:
         assert np.asarray(vre).shape == (128, 6, 6)
 
         # beams match the FB engine on identical inputs
-        fb = FBEngine(cfg, n_spectra=8, use_pallas=False)
+        fb = FBEngine(cfg, n_spectra=8)
         want_beams = np.asarray(fb(adc, cd, fd, ph, dv))
         np.testing.assert_allclose(beams, want_beams, rtol=1e-5, atol=1e-3)
 
         # visibilities match golden correlation of the F-stage output
-        fe = FEngine(cfg, n_spectra=8, use_pallas=False)
+        fe = FEngine(cfg, n_spectra=8)
         quant = np.asarray(fe(adc, cd, fd, ph))  # [A, P, S, C, 2]
         x = quant.transpose(3, 2, 0, 1, 4).reshape(128, 8, 6, 2)
         want_re, want_im = golden.correlate_planar(x[..., 0], x[..., 1])
@@ -230,7 +230,7 @@ class TestVisibilityAccumulator:
         from dpdk_dc_sand_tpu.models import FXBEngine, VisibilityAccumulator
 
         cfg = ArrayConfig(n_ants=3, n_channels=128, n_beams=2, n_taps=4)
-        fxb = FXBEngine(cfg, n_spectra=8, use_pallas=False)
+        fxb = FXBEngine(cfg, n_spectra=8)
         adc, cd, fd, ph, dv = fxb.example_inputs()
         acc = VisibilityAccumulator(n_accum=2)
         _, vre, vim = fxb(adc, cd, fd, ph, dv)
@@ -263,191 +263,6 @@ def test_fbengine_folded_bstage_matches_planar():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 
-def test_fbengine_fused_bstage_matches_planar():
-    """bstage="fused" (corner turn + block-diagonal dot in one Pallas
-    kernel) == planar. The block-diagonal zeros are exact, so f32 beams
-    agree to float tolerance."""
-    cfg = ArrayConfig(n_ants=5, n_channels=64, n_beams=2, n_taps=4)
-    planar = FBEngine(cfg, n_spectra=64, precision="f32")
-    fused = FBEngine(
-        cfg, n_spectra=64, precision="f32", bstage="fused",
-        fengine_interpret=True,
-    )
-    inputs = planar.example_inputs()
-    want = np.asarray(planar(*inputs))
-    got = np.asarray(fused(*inputs))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
-
-
-def test_fbengine_kernel_coarse_matches_xla_coarse():
-    """In-kernel coarse delay (DMA offset + in-VMEM sub-row shift) ==
-    the XLA alignment pass, through the full FBEngine step.
-
-    The engine picks the in-kernel path automatically when the ADC
-    margin covers the DMA padding; slicing the margin away forces the
-    XLA fallback on the identical stream (delays stay below the sliced
-    margin so both paths see the same samples).
-    """
-    cfg = ArrayConfig(n_ants=3, n_channels=1024, n_beams=2, n_taps=4)
-    kwargs = dict(
-        n_spectra=8, fengine="fused_f32", fengine_interpret=True,
-        bstage="planar", precision="f32",
-    )
-    fb = FBEngine(cfg, **kwargs)
-    # margin = DMA padding slack (coarse_margin_samples) + delay budget
-    adc, cd, fd, ph, dv = fb.example_inputs(margin=8192)
-    cd = (cd % 1800).astype(np.int32)
-    want_kernel = np.asarray(fb(adc, cd, fd, ph, dv))
-
-    fb2 = FBEngine(cfg, **kwargs)
-    got_xla = np.asarray(
-        fb2(adc[..., : fb2.samples_in + 1800], cd, fd, ph, dv)
-    )
-    np.testing.assert_allclose(want_kernel, got_xla, rtol=1e-5, atol=1e-4)
-
-
-def test_fbengine_turned_bstage_matches_planar():
-    """bstage="turned" (Pallas corner turn + folded dot) == planar.
-
-    Same arithmetic through a different data path: the corner turn is an
-    exact int8 permute and the folded dot is the same f32 contraction, so
-    beams agree to float tolerance.
-    """
-    cfg = ArrayConfig(n_ants=5, n_channels=64, n_beams=3, n_taps=4)
-    planar = FBEngine(cfg, n_spectra=8, precision="f32")
-    turned = FBEngine(
-        cfg, n_spectra=8, precision="f32", bstage="turned",
-        fengine_interpret=True,
-    )
-    inputs = planar.example_inputs()
-    want = np.asarray(planar(*inputs))
-    got = np.asarray(turned(*inputs))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
-
-
-def test_fxb_fast_backends_match_xla():
-    """FXBEngine with the production fast path (fused F kernel + turned
-    Pallas B-stage) ≡ the portable XLA/planar FXB on identical inputs.
-
-    The full-instrument node must not be locked out of the fast path:
-    one F feeding X and B is the katgpucbf premise (do_merge.sh:4-10).
-    """
-    from dpdk_dc_sand_tpu.models import FXBEngine
-
-    cfg = ArrayConfig(n_ants=4, n_channels=1024, n_beams=4, n_taps=4)
-    ref = FXBEngine(
-        cfg, n_spectra=64, use_pallas=False, fengine="xla", bstage="planar"
-    )
-    fast = FXBEngine(
-        cfg, n_spectra=64, fengine="fused_f32", bstage="turned",
-        fengine_interpret=True,
-    )
-    assert fast.fengine == "fused_f32" and fast.bstage == "turned"
-    adc, cd, fd, ph, dv = ref.example_inputs()
-    wb, wr, wi = ref(adc, cd, fd, ph, dv)
-    gb, gr, gi = fast(adc, cd, fd, ph, dv)
-    # The two F paths round differently (matmul-DFT vs complex FFT), so a
-    # handful of requant ties flip by ±1 int8 code; each flip moves a beam
-    # by ≤ 2·max|w| = 2 and a visibility by ≤ 2·127. Bound by that code
-    # tolerance (the discipline of tests/test_fengine_fused.py) and
-    # require the flips to be rare.
-    db = np.abs(np.asarray(gb) - np.asarray(wb))
-    assert db.max() <= 2.0 + 1e-3
-    assert (db > 1e-3).mean() < 1e-3
-    for got, want in ((gr, wr), (gi, wi)):
-        dv_ = np.abs(np.asarray(got) - np.asarray(want))
-        assert dv_.max() <= 2 * 127 + 1e-3
-        assert (dv_ > 1e-3).mean() < 5e-3
-
-
-def test_fxb_tuning_knobs_match_default_schedule():
-    """The kernel-tuning knobs (s_blk / pipeline / slab tap-outer)
-    reach FXBEngine's F stage and match the default schedule to the
-    ±1-code requant-tie tolerance (bit-exact on TPU; see in-test note)."""
-    from dpdk_dc_sand_tpu.models import FXBEngine
-
-    cfg = ArrayConfig(n_ants=4, n_channels=1024, n_beams=4, n_taps=4)
-    base = FXBEngine(
-        cfg, n_spectra=64, fengine="fused_f32", bstage="turned",
-        ct_batch_a=True, fengine_interpret=True,
-    )
-    tuned = FXBEngine(
-        cfg, n_spectra=64, fengine="fused_f32", bstage="turned",
-        ct_batch_a=True, fengine_interpret=True,
-        fengine_s_blk=8, fengine_pipeline=2, fengine_tapouter="slab",
-    )
-    assert tuned.fengine_s_blk == 8 and tuned.fengine_tapouter == "slab"
-    adc, cd, fd, ph, dv = base.example_inputs()
-    wb, wr, wi = base(adc, cd, fd, ph, dv)
-    gb, gr, gi = tuned(adc, cd, fd, ph, dv)
-    # Bit-exact on the TPU (tests/tpu); on the CPU backend XLA sums the
-    # slab stage-A's NT-form dot in a different order than the NN form,
-    # so a handful of requant ties flip by +-1 int8 code. Same code-
-    # tolerance discipline as test_fxb_fast_backends_match_xla.
-    db = np.abs(np.asarray(gb) - np.asarray(wb))
-    assert db.max() <= 2.0 + 1e-3
-    assert (db > 1e-3).mean() < 1e-3
-    for got, want in ((gr, wr), (gi, wi)):
-        dv_ = np.abs(np.asarray(got) - np.asarray(want))
-        assert dv_.max() <= 2 * 127 + 1e-3
-        assert (dv_ > 1e-3).mean() < 5e-3
-
-
-def test_fbengine_natural_beam_layout_matches_split():
-    """beam_layout="natural" is the same beams in the dot-natural
-    [C, P·S, 2B] form: re-laying it out host-side must reproduce the
-    split [P, C, S, B, 2] output exactly (the production egress ships
-    the natural form and skips the ~5 ms on-device epilogue)."""
-    cfg = ArrayConfig(n_ants=5, n_channels=64, n_beams=3, n_taps=4)
-    kwargs = dict(n_spectra=64, precision="f32", bstage="turned",
-                  fengine_interpret=True)
-    split = FBEngine(cfg, **kwargs)
-    nat = FBEngine(cfg, beam_layout="natural", **kwargs)
-    inputs = split.example_inputs()
-    want = np.asarray(split(*inputs))
-    got = np.asarray(nat(*inputs))
-    c, m, b2 = got.shape
-    assert (c, m, b2) == (cfg.n_channels, cfg.n_pols * 64, 2 * cfg.n_beams)
-    re_im = got.reshape(c, cfg.n_pols, 64, 2, cfg.n_beams)
-    relay = np.stack(
-        [re_im[:, :, :, 0, :], re_im[:, :, :, 1, :]], axis=-1
-    ).transpose(1, 0, 2, 3, 4)
-    np.testing.assert_allclose(relay, want, rtol=1e-6, atol=1e-6)
-
-    # int8 device-quantised natural beams round-trip the same way
-    natq = FBEngine(cfg, beam_layout="natural", beam_quant_scale=0.25,
-                    **kwargs)
-    splitq = FBEngine(cfg, beam_quant_scale=0.25, **kwargs)
-    gq = np.asarray(natq(*inputs))
-    wq = np.asarray(splitq(*inputs))
-    assert gq.dtype == np.int8
-    rq = gq.reshape(c, cfg.n_pols, 64, 2, cfg.n_beams)
-    relayq = np.stack(
-        [rq[:, :, :, 0, :], rq[:, :, :, 1, :]], axis=-1
-    ).transpose(1, 0, 2, 3, 4)
-    np.testing.assert_array_equal(relayq, wq)
-
-
-def test_fbengine_packed_fused_beam_layout_matches_split():
-    """beam_layout="natural" over bstage="fused": the one-kernel packed
-    [C/pack, P·S, pack·2B] wire format re-laid out host-side equals the
-    split beams."""
-    cfg = ArrayConfig(n_ants=4, n_channels=512, n_beams=4, n_taps=4)
-    kwargs = dict(n_spectra=64, precision="f32", fengine_interpret=True)
-    split = FBEngine(cfg, bstage="fused", **kwargs)
-    packed = FBEngine(cfg, bstage="fused", beam_layout="natural", **kwargs)
-    inputs = split.example_inputs()
-    want = np.asarray(split(*inputs))  # [P, C, S, B, 2]
-    got = np.asarray(packed(*inputs))
-    c, p, s, nb = cfg.n_channels, cfg.n_pols, 64, cfg.n_beams
-    pack = 128 // (2 * nb)
-    assert got.shape == (c // pack, p * s, pack * 2 * nb)
-    x = got.reshape(c // pack, p, s, pack, 2, nb)
-    relay = np.transpose(x, (1, 0, 3, 2, 4, 5)).reshape(p, c, s, 2, nb)
-    relay = np.stack([relay[..., 0, :], relay[..., 1, :]], axis=-1)
-    np.testing.assert_allclose(relay, want, rtol=1e-6, atol=1e-6)
-
-
 def test_steering_cache_tracks_values_not_identity():
     """A fresh delay solution must regenerate the steering planes even
     when CPython hands the new array the dead previous array's address.
@@ -460,7 +275,7 @@ def test_steering_cache_tracks_values_not_identity():
     on a content digest (ops.coeff_gen.steering_key).
     """
     cfg = ArrayConfig(n_ants=3, n_channels=128, n_beams=2, n_taps=4)
-    eng = FBEngine(cfg, n_spectra=4, use_pallas=False)
+    eng = FBEngine(cfg, n_spectra=4)
 
     dv = np.zeros((cfg.n_beams, cfg.n_ants, 4), np.float32)
     eng.set_beam_delays(dv)
@@ -505,30 +320,3 @@ def test_steering_key_is_content_keyed():
     w2[1] = 0.5
     assert steering_key(a, w, 0.0) != steering_key(a, w2, 0.0)
     assert steering_key(a, w, 0.0) != steering_key(a, w, 1.0)
-
-
-def test_native_handoff_matches_flat_turned():
-    """fengine_native_handoff=True (per-plane corner turn slicing the F
-    kernel's own [rows, lanes] plane layout + split-contraction
-    beamform) matches the default turned path to f32-accumulation
-    tolerance (the split dot reassociates one add). Measured neutral at
-    the flagship config (2026-08-21) — kept behind the knob."""
-    import jax.numpy as jnp
-
-    from dpdk_dc_sand_tpu.config import ArrayConfig
-    from dpdk_dc_sand_tpu.models import FBEngine
-
-    cfg = ArrayConfig(n_ants=4, n_channels=8192, n_beams=4, n_taps=4)
-    common = dict(
-        cfg=cfg, n_spectra=128, precision="bf16", fengine="fused",
-        bstage="turned", fengine_interpret=True, ct_batch_a=True,
-        fengine_rolling=True, beam_layout="natural",
-    )
-    nat = FBEngine(fengine_native_handoff=True, **common)
-    ref = FBEngine(**common)
-    assert ref.fengine_native_handoff is False  # measured-neutral default
-    adc, cd, fd, ph, dv = nat.example_inputs(margin=4096, delay_budget=64)
-    args = tuple(jnp.asarray(x) for x in (adc, cd, fd, ph, dv))
-    got = np.asarray(nat(*args))
-    want = np.asarray(ref(*args))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)

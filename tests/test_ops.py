@@ -1,4 +1,4 @@
-"""TPU-op vs CPU-golden parity tests.
+"""Device-op vs CPU-golden parity tests.
 
 The reference's core test pattern (SURVEY.md §4): every accelerator op is
 checked against its CPU golden model on seeded random input with
@@ -212,35 +212,9 @@ def test_pfb_fir_matches_golden(n_taps, n_channels):
     fft = 2 * n_channels
     window = golden.pfb_window(n_taps, fft)
     x = RNG.normal(scale=30, size=(3, (6 + n_taps - 1) * fft)).astype(np.float32)
-    got = np.asarray(ops.pfb_fir(x, window, use_pallas=False))
+    got = np.asarray(ops.pfb_fir(x, window))
     want = golden.pfb_fir(x, window)
     assert got.shape == want.shape == (3, 6, fft)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
-
-
-def test_pfb_fir_pallas_interpret_matches_jnp():
-    """Pallas kernel (interpret mode on CPU) ≡ jnp path, int8 and f32."""
-    from dpdk_dc_sand_tpu.ops import pfb_pallas
-    import jax.numpy as jnp
-    from unittest import mock
-
-    n_taps, fft = 8, 256
-    window = golden.pfb_window(n_taps, fft)
-    x = RNG.integers(-128, 127, size=(2, (8 + n_taps - 1) * fft), dtype=np.int8)
-    frames = x.reshape(2, -1, fft)
-
-    real_call = pfb_pallas.pl.pallas_call
-
-    def interp_call(*args, **kw):
-        kw["interpret"] = True
-        kw.pop("compiler_params", None)
-        return real_call(*args, **kw)
-
-    with mock.patch.object(pfb_pallas.pl, "pallas_call", interp_call):
-        got = np.asarray(
-            pfb_pallas.fir_pallas(jnp.asarray(frames), jnp.asarray(window), 8)
-        )
-    want = golden.pfb_fir(x.astype(np.float32), window)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 
@@ -251,10 +225,10 @@ def test_pfb_channelise_matches_golden_and_spec():
     k = 40
     n = np.arange((8 + n_taps - 1) * fft)
     x = (100 * np.cos(2 * np.pi * k * n / fft)).astype(np.float32)
-    got = np.asarray(ops.pfb_channelise(x, window, use_pallas=False))
+    got = np.asarray(ops.pfb_channelise(x, window))
     want = golden.pfb_channelise(x, window)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
-    # channelisation acceptance spec on the TPU op itself
+    # channelisation acceptance spec on the device op itself
     power = np.abs(got[4]) ** 2
     assert int(np.argmax(power)) == k
     rel_db = 10 * np.log10(power / power[k] + 1e-300)
@@ -313,31 +287,4 @@ def test_requantise_matches_golden():
     x = RNG.normal(scale=100, size=(64, 64)).astype(np.float32)
     got = np.asarray(ops.requantise(x, 0.5))
     want = golden.requantise(x, 0.5)
-    np.testing.assert_array_equal(got, want)
-
-
-# ----------------------------------------------------------------------
-# Pallas corner turn: exact (both kernel forms, interpreter mode on CPU)
-# ----------------------------------------------------------------------
-@pytest.mark.parametrize(
-    "a,p,s,c",
-    [
-        (5, 2, 8, 64),  # full-P·S form (S not a multiple of 128)
-        (3, 2, 128, 128),  # split form (per-pol 128-lane spectra chunks)
-        (4, 2, 64, 256),  # full form, multi-channel-block
-    ],
-)
-def test_corner_turn_matches_transpose(a, p, s, c):
-    """Pallas corner turn == the reference permute, bit-exact.
-
-    The golden model is the XLA transpose the kernel replaces:
-    [A, P, S, C] planes -> [C, 2A, P·S] with rows k = reim·A + a_idx
-    (prebeamform_reorder.py corner-turn contract in the folded layout).
-    """
-    qr = RNG.integers(-128, 128, (a, p, s, c)).astype(np.int8)
-    qi = RNG.integers(-128, 128, (a, p, s, c)).astype(np.int8)
-    got = np.asarray(ops.corner_turn_planes(qr, qi, interpret=True))
-    want_r = np.transpose(qr, (3, 1, 2, 0)).reshape(c, p * s, a)
-    want_i = np.transpose(qi, (3, 1, 2, 0)).reshape(c, p * s, a)
-    want = np.concatenate([want_r, want_i], -1).transpose(0, 2, 1)
     np.testing.assert_array_equal(got, want)

@@ -1,6 +1,6 @@
 """End-to-end bf16 beam-pipeline accuracy budget.
 
-The bf16 beamform precision mode is the TPU analog of the reference's
+The bf16 beamform precision mode is the analog of the reference's
 16-bit coefficient output (BeamformerKernels.cu:101-117), which the
 reference ships UNVERIFIED ("not checked for correctness",
 BeamformerCoefficientTest.cu:281-287) and only bounds indirectly through
@@ -21,8 +21,8 @@ from dpdk_dc_sand_tpu.models import FBEngine
 
 
 def _beam_errors(cfg, n_spectra=8, seed=2021):
-    fb32 = FBEngine(cfg, n_spectra=n_spectra, precision="f32", use_pallas=False)
-    fb16 = FBEngine(cfg, n_spectra=n_spectra, precision="bf16", use_pallas=False)
+    fb32 = FBEngine(cfg, n_spectra=n_spectra, precision="f32")
+    fb16 = FBEngine(cfg, n_spectra=n_spectra, precision="bf16")
     args = fb32.example_inputs(seed=seed)
     want = np.asarray(fb32(*args), np.float64)
     got = np.asarray(fb16(*args), np.float64)

@@ -44,7 +44,7 @@ def test_sharded_matches_single_device(shape):
     # Single-device reference: same circular halo = prepend global tail.
     halo = (cfg.n_taps - 1) * cfg.fft_size
     adc_ext = np.concatenate([adc[..., -halo:], adc], axis=-1)
-    fb = FBEngine(cfg, n_spectra=n_spectra, use_pallas=False)
+    fb = FBEngine(cfg, n_spectra=n_spectra)
     want = np.asarray(
         fb(adc_ext, np.zeros(cfg.n_ants, np.int32), fd, ph, dv)
     )
@@ -55,8 +55,8 @@ def test_sharded_matches_single_device(shape):
 def test_sharded_fplanes_within_one_code_of_single_chip(shape):
     """Distributed F planes ≡ single-chip F planes to ±1 int8 code.
 
-    The elementwise bound on the *quantised planes* (the discipline of
-    tests/test_fengine_fused.py): any sharding-induced float difference
+    The elementwise bound on the *quantised planes* (the
+    golden.chain.check_codes discipline): any sharding-induced float difference
     may flip a round-half-even tie by at most one code, and must do so
     rarely.
     """
@@ -73,7 +73,7 @@ def test_sharded_fplanes_within_one_code_of_single_chip(shape):
 
     halo = (cfg.n_taps - 1) * cfg.fft_size
     adc_ext = np.concatenate([adc[..., -halo:], adc], axis=-1)
-    fe = FEngine(cfg, n_spectra=n_spectra, use_pallas=False)
+    fe = FEngine(cfg, n_spectra=n_spectra)
     want = np.asarray(
         fe(adc_ext, np.zeros(cfg.n_ants, np.int32), fd, ph)
     ).astype(np.int32)
@@ -167,7 +167,7 @@ def test_sharded_visibilities_match_golden():
     # single-device reference: same circular-halo F stage, then correlate
     halo = (cfg.n_taps - 1) * cfg.fft_size
     adc_ext = np.concatenate([adc[..., -halo:], adc], axis=-1)
-    fe = FEngine(cfg, n_spectra=16, use_pallas=False)
+    fe = FEngine(cfg, n_spectra=16)
     quant = np.asarray(
         fe(adc_ext, np.zeros(cfg.n_ants, np.int32), fd, ph)
     )  # [A, P, S, C, 2]
@@ -209,79 +209,6 @@ def test_scatter_beams_rejects_indivisible():
         )
 
 
-def test_sharded_fused_fengine_matches_single_chip_fused():
-    """Fused Pallas F-stage inside shard_map ≡ same kernel single-chip.
-
-    Interpret-mode kernel on the 8-device CPU mesh; the same kernel runs
-    on both sides so the int8 handoff is identical and beams agree to
-    beamform tolerance. (Comparing against the XLA FFT instead leaves
-    ±1-code requant ties — covered by tests/test_fengine_fused.py.)
-    """
-    mesh = make_mesh(8, shape=(2, 4))
-    cfg = ArrayConfig(n_ants=8, n_channels=512, n_beams=4, n_taps=4)
-    n_spectra = 16
-    fused = ShardedFBEngine(
-        cfg, mesh, n_spectra=n_spectra,
-        fengine="fused_f32", fengine_interpret=True,
-    )
-    adc, fd, ph, dv = fused.example_inputs()
-    got = np.asarray(fused(adc, fd, ph, dv))
-
-    halo = (cfg.n_taps - 1) * cfg.fft_size
-    adc_ext = np.concatenate([adc[..., -halo:], adc], axis=-1)
-    fb = FBEngine(
-        cfg, n_spectra=n_spectra, fengine="fused_f32", fengine_interpret=True
-    )
-    want = np.asarray(
-        fb(adc_ext, np.zeros(cfg.n_ants, np.int32), fd, ph, dv)
-    )
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
-
-
-def test_sharded_tuning_knobs_match_default_schedule():
-    """fengine_s_blk / fengine_pipeline / fengine_tapouter reach the
-    per-shard fused kernel and match the default schedule to the
-    ±1-code tolerance (bit-exact on TPU; same knob contract as FBEngine)."""
-    mesh = make_mesh(8, shape=(2, 4))
-    cfg = ArrayConfig(n_ants=8, n_channels=512, n_beams=4, n_taps=4)
-    base = ShardedFBEngine(
-        cfg, mesh, n_spectra=16,
-        fengine="fused_f32", fengine_interpret=True, ct_batch_a=True,
-    )
-    tuned = ShardedFBEngine(
-        cfg, mesh, n_spectra=16,
-        fengine="fused_f32", fengine_interpret=True, ct_batch_a=True,
-        fengine_s_blk=4, fengine_pipeline=2, fengine_tapouter="slab",
-    )
-    assert tuned.fengine_s_blk == 4 and tuned.fengine_tapouter == "slab"
-    adc, fd, ph, dv = base.example_inputs()
-    want = np.asarray(base(adc, fd, ph, dv))
-    got = np.asarray(tuned(adc, fd, ph, dv))
-    # Bit-exact on the TPU; +-1-code requant ties on the CPU backend
-    # (the slab stage-A's NT-form dot sums in a different order) move a
-    # beam by <= 2*max|w| = 2. Same discipline as the FXB knob test.
-    d = np.abs(got - want)
-    assert d.max() <= 2.0 + 1e-3
-    assert (d > 1e-3).mean() < 1e-3
-
-
-@pytest.mark.parametrize("bstage", ["turned", "fused"])
-def test_sharded_pallas_bstage_matches_planar(bstage):
-    """Pallas B-stages in-shard (corner turn + dot, or the one-kernel
-    fused form) ≡ planar sharded."""
-    mesh = make_mesh(4, shape=(2, 2))
-    n_spectra = 8 if bstage == "turned" else 64  # fused needs P·S % 128
-    cfg = ArrayConfig(n_ants=8, n_channels=128, n_beams=4, n_taps=4)
-    planar = ShardedFBEngine(cfg, mesh, n_spectra=n_spectra)
-    pall = ShardedFBEngine(
-        cfg, mesh, n_spectra=n_spectra, bstage=bstage, fengine_interpret=True
-    )
-    adc, fd, ph, dv = planar.example_inputs()
-    want = np.asarray(planar(adc, fd, ph, dv))
-    got = np.asarray(pall(adc, fd, ph, dv))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
-
-
 def test_sharded_steering_extrapolation_and_weights():
     """Distributed steering parity with the single-chip engine.
 
@@ -311,7 +238,7 @@ def test_sharded_steering_extrapolation_and_weights():
     # Single-device reference at the same instant (same circular halo).
     halo = (cfg.n_taps - 1) * cfg.fft_size
     adc_ext = np.concatenate([adc[..., -halo:], adc], axis=-1)
-    fb = FBEngine(cfg, n_spectra=n_spectra, use_pallas=False)
+    fb = FBEngine(cfg, n_spectra=n_spectra)
     fb.set_beam_delays(dv, ant_weights=weights, t_s=t)
     want = np.asarray(
         fb.step(adc_ext, np.zeros(cfg.n_ants, np.int32), fd, ph)
@@ -319,24 +246,21 @@ def test_sharded_steering_extrapolation_and_weights():
     np.testing.assert_allclose(got_t, want, rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("chunks,bstage", [(2, "planar"), (4, "planar"),
-                                           (2, "turned"), ("auto", "planar")])
-def test_ici_interleaved_step_matches_monolithic(chunks, bstage):
+@pytest.mark.parametrize("chunks", [2, 4, "auto"])
+def test_ici_interleaved_step_matches_monolithic(chunks):
     """ici_chunks splits the corner turn + beamform + psum into spectra
     sub-blocks whose collectives interleave with the B compute; results
     must equal the monolithic step exactly (same values, same order).
-    ``"auto"`` (the shipped default) resolves to the same interleave the
-    committed SCALING.json projection models (k=8 where it divides)."""
+    ``"auto"`` (the shipped default) resolves to the largest of
+    {8, 4, 2} that divides the per-device spectra count."""
     mesh = make_mesh(8, shape=(2, 4))
     cfg = ArrayConfig(n_ants=8, n_channels=128, n_beams=4, n_taps=4)
     n_spectra = 32
-    kwargs = dict(n_spectra=n_spectra, bstage=bstage)
-    if bstage != "planar":
-        kwargs["fengine_interpret"] = True
+    kwargs = dict(n_spectra=n_spectra)
     mono = ShardedFBEngine(cfg, mesh, ici_chunks=1, **kwargs)
     inter = ShardedFBEngine(cfg, mesh, ici_chunks=chunks, **kwargs)
     if chunks == "auto":
-        # per-device spectra = 32/4 = 8 -> the modeled k=8
+        # per-device spectra = 32/4 = 8 -> k=8
         assert inter.ici_chunks == 8
     adc, fd, ph, dv = mono.example_inputs()
     want = np.asarray(mono(adc, fd, ph, dv))
@@ -345,8 +269,8 @@ def test_ici_interleaved_step_matches_monolithic(chunks, bstage):
 
 
 def test_ici_chunks_auto_resolution():
-    """The shipped default matches the committed projection's config:
-    interleave ON (largest dividing k of {8,4,2}) on multi-device
+    """The shipped default: interleave ON (largest dividing k of
+    {8,4,2}) on multi-device
     meshes, OFF on single-device meshes and in the emit modes."""
     cfg = ArrayConfig(n_ants=8, n_channels=128, n_beams=4, n_taps=4)
     mesh = make_mesh(8, shape=(2, 4))
@@ -371,83 +295,3 @@ def test_ici_chunks_validation():
         ShardedFBEngine(
             cfg, mesh, n_spectra=32, ici_chunks=2, emit_visibilities=True
         )
-
-
-def test_sharded_visibilities_fused_kernel_path(monkeypatch):
-    """The sharded X stage's Pallas visibility path (plane gather +
-    in-VMEM turn + gram) equals the transpose/gram fallback on the same
-    engine configuration (identical F planes on both sides)."""
-    mesh = make_mesh(8, shape=(2, 4))
-    cfg = ArrayConfig(n_ants=8, n_channels=512, n_beams=4, n_taps=4)
-    n_spectra = 512  # C_loc = 128, S = 512: fused-kernel geometry holds
-    kwargs = dict(
-        n_spectra=n_spectra, emit_visibilities=True, fengine_interpret=True
-    )
-    fused = ShardedFBEngine(cfg, mesh, **kwargs)
-    adc, fd, ph, dv = fused.example_inputs()
-    beams_f, vre_f, vim_f = fused(adc, fd, ph, dv)
-
-    import dpdk_dc_sand_tpu.ops.xcorr_pallas as xp
-
-    monkeypatch.setattr(xp, "xcorr_fused_supported", lambda *a: False)
-    fallback = ShardedFBEngine(cfg, mesh, **kwargs)
-    beams_w, vre_w, vim_w = fallback(adc, fd, ph, dv)
-
-    np.testing.assert_allclose(
-        np.asarray(beams_f), np.asarray(beams_w), rtol=1e-5, atol=1e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(vre_f), np.asarray(vre_w), rtol=1e-5, atol=0.5
-    )
-    np.testing.assert_allclose(
-        np.asarray(vim_f), np.asarray(vim_w), rtol=1e-5, atol=0.5
-    )
-
-
-def test_rowed_ingest_matches_flat_sharded():
-    """Wire-rowed adc ([A, P, rows, N2], dispatched to the rowed
-    shard_map with whole-row halo exchange) equals the flat-stream step
-    exactly — same bytes, born in the kernel's HBM view."""
-    from dpdk_dc_sand_tpu.ops.fengine_pallas import ingest_alignment
-
-    mesh = make_mesh(8, shape=(2, 4))
-    cfg = ArrayConfig(n_ants=8, n_channels=512, n_beams=4, n_taps=4)
-    eng = ShardedFBEngine(
-        cfg, mesh, n_spectra=16, fengine="fused_f32", fengine_interpret=True
-    )
-    assert eng.rowed_ingest
-    adc, fd, ph, dv = eng.example_inputs()
-    want = np.asarray(eng(adc, fd, ph, dv))
-    n2 = ingest_alignment(cfg.fft_size)
-    rowed = adc.reshape(cfg.n_ants, cfg.n_pols, -1, n2)
-    got = np.asarray(eng(rowed, fd, ph, dv))
-    np.testing.assert_array_equal(got, want)
-    # engines without the fused form refuse rowed input loudly
-    import pytest
-
-    xla = ShardedFBEngine(cfg, mesh, n_spectra=16, fengine="xla")
-    assert not xla.rowed_ingest
-    with pytest.raises(ValueError, match="rowed"):
-        xla(rowed, fd, ph, dv)
-
-
-def test_ici_chunks_auto_respects_chunked_turn_geometry():
-    """ici_chunks='auto' must not pick a k whose per-chunk corner turn
-    is an unsupported Pallas geometry: the bstage resolution validates
-    the MONOLITHIC spectra count, so the auto k re-checks S/k (review
-    round 5 — a working turned config would otherwise fail Mosaic
-    lowering under the new default)."""
-    from dpdk_dc_sand_tpu.ops.corner_turn import corner_turn_supported
-
-    mesh = make_mesh(4, shape=(2, 2))
-    cfg = ArrayConfig(n_ants=8, n_channels=1024, n_beams=4, n_taps=4)
-    eng = ShardedFBEngine(
-        cfg, mesh, n_spectra=128, bstage="turned", fengine_interpret=True
-    )
-    k = eng.ici_chunks
-    if k > 1:
-        assert corner_turn_supported(
-            cfg.n_ants // 2, cfg.n_pols, 128 // k, cfg.n_channels // 2
-        ), k
-    # k=8 would give 16-spectra chunks (unsupported turn geometry)
-    assert k != 8
